@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (vector_store_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA Hopper GPU, nvcc and the repository checkout; it exits
+non-zero (and prints no result) without them. Phases, each fatal on
+failure:
+
+1. device: CUDA present; the card's name and power limit (nvidia-smi).
+2. build: the scan kernels of csrc/ compiled with nvcc for sm_90a.
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the default ANN path's shapes, F32 and BF16: the fused scan over
+   1,000,000 x 128 rows (capacity rounded up to the scan block) with 1024
+   queries; the grouped scan over nlist 2048 x cmax 768 with the slot
+   budget of a 1024-query batch at nprobe 32. Ranks agree within
+   1e-4 * (1 + |r|); positions are equal except where the kernel's row
+   ties the plain winner within that tolerance in the same group. Median
+   times over CUDA events after warm-up.
+4. service: the port's HTTP service (run.serve) over FakeDb with one
+   default vector index (COSINE, F32, global) of SERVICE_ROWS clustered
+   128-d rows; ANN requests with 64 in flight, recall@10 against exact f32
+   ground truth computed on the card (>= 0.90), self-queries and one CDC
+   upsert found first at distance 0. Both kernels' launch counts are reset
+   before and read after this phase, and must be > 0.
+
+The last three lines of standard output are: one JSON object describing
+the kernels, the nvidia-smi name/power-limit line, and
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import socket
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+SEED = 20261016
+DIMS = 128
+SERVICE_ROWS = 1_000_000
+N_CLUSTERS = 256
+N_REQUESTS = 1024
+IN_FLIGHT = 64
+K = 10
+RECALL_MIN = 0.90
+RTOL = 1e-4
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"smoke check failed: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def compare(name, rank, pos, plain_rank, plain_pos, exact_rank_at, group_of) -> float:
+    """Check a kernel's (rank, pos) against its plain version; return the
+    max abs rank error. exact_rank_at(qi, rows) recomputes ranks of given
+    rows; group_of(qi, col) is the group id a (query, column) must hold."""
+    err = (rank - plain_rank).abs()
+    check(bool((err <= RTOL * (1 + plain_rank.abs())).all()), f"{name}: ranks differ beyond tolerance")
+    mism = (pos != plain_pos).nonzero()
+    if mism.numel():
+        qi, col = mism[:, 0], mism[:, 1]
+        rows = pos[qi, col].long()
+        check(bool((group_of(qi, col) == group_of(qi, col, rows)).all()), f"{name}: row outside its group")
+        tie = (exact_rank_at(qi, rows) - plain_rank[qi, col]).abs()
+        check(
+            bool((tie <= RTOL * (1 + plain_rank[qi, col].abs())).all()),
+            f"{name}: {mism.shape[0]} positions differ beyond near ties",
+        )
+    return float(err.max())
+
+
+def kernel_phase(device) -> list[dict]:
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+
+    rng = np.random.default_rng(SEED)
+    out = []
+
+    # -- kernel 1: fused scan at the flat-scan shape --------------------------
+    block = fs.block_rows_for(DIMS)
+    cap = -(-SERVICE_ROWS // block) * block
+    nq = 1024
+    v32 = torch.from_numpy(rng.standard_normal((cap, DIMS), dtype=np.float32)).to(device)
+    v32 /= v32.norm(dim=1, keepdim=True)
+    q32 = torch.from_numpy(rng.standard_normal((nq, DIMS), dtype=np.float32)).to(device)
+    q32 /= q32.norm(dim=1, keepdim=True)
+    a = torch.full((cap,), -1.0, device=device)  # cosine coefficients
+    b = torch.zeros((cap,), device=device)
+    b[SERVICE_ROWS:] = fs.INVALID_BIAS  # rows past the index: empty slots
+    b[torch.from_numpy(rng.random(cap) < 0.01).to(device)] = fs.INVALID_BIAS  # removed rows
+    entry = {"name": "fused_scan", "route": "cuda", "source": "vector_store_tpu_torch/csrc/fused_scan.cu",
+             "replaces": "vector_store_tpu/ops/pallas_scan.py:136"}
+    errs, times = [], {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, v = q32.to(dt), v32.to(dt)
+        rank, pos = fs.fused_scan(q, v, a, b, block)
+        prank, ppos = fs.fused_scan_plain(q, v, a, b, block)
+
+        def exact(qi, rows, q=q, v=v):
+            return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + b[rows]
+
+        def group(qi, col, rows=None):
+            if rows is None:
+                return (col // fs.LANES) * block + col % fs.LANES
+            return (rows // block) * block + rows % fs.LANES
+
+        errs.append(compare(f"fused_scan/{dt}", rank, pos, prank, ppos, exact, group))
+        times[dt] = (
+            median_ms(lambda: fs.fused_scan(q, v, a, b, block)),
+            median_ms(lambda: fs.fused_scan_plain(q, v, a, b, block), reps=5),
+        )
+        print(f"[kernels] fused_scan {dt} {cap}x{DIMS} B={nq}: kernel {times[dt][0]:.3f} ms, "
+              f"plain {times[dt][1]:.3f} ms, max |rank err| {errs[-1]:.3g} (tolerance {RTOL:g} * (1 + |r|))", flush=True)
+    del v32, v, prank, ppos
+    entry.update(max_abs_err=max(errs), ms=times[torch.float32][0], plain_ms=times[torch.float32][1])
+    out.append(entry)
+
+    # -- kernel 2: grouped scan at the IVF shape ------------------------------
+    nlist, cmax = 2048, 768
+    s = ivf.choose_budget(nq, 32, nlist)
+    v32 = torch.from_numpy(rng.standard_normal((nlist * cmax, DIMS), dtype=np.float32)).to(device)
+    v32 /= v32.norm(dim=1, keepdim=True)
+    qg32 = torch.from_numpy(rng.standard_normal((nlist * s, DIMS), dtype=np.float32)).to(device)
+    qg32 /= qg32.norm(dim=1, keepdim=True)
+    a = torch.full((nlist * cmax,), -1.0, device=device)
+    b = torch.where(  # clusters are ~80% full
+        torch.from_numpy(rng.random(nlist * cmax) < 0.8).to(device), 0.0, fs.INVALID_BIAS
+    )
+    entry = {"name": "grouped_scan", "route": "cuda", "source": "vector_store_tpu_torch/csrc/grouped_scan.cu",
+             "replaces": "vector_store_tpu/ops/ivf.py:467"}
+    errs, times = [], {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, v = qg32.to(dt), v32.to(dt)
+        rank, pos = ivf.grouped_scan(q, v, a, b, s, cmax)
+        prank, ppos = ivf.grouped_scan_plain(q, v, a, b, s, cmax)
+
+        def exact(qi, rows, q=q, v=v):
+            return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + b[rows]
+
+        def group(qi, col, rows=None):
+            if rows is None:
+                return (qi // s) * cmax + col
+            return (rows // cmax) * cmax + rows % fs.LANES
+
+        errs.append(compare(f"grouped_scan/{dt}", rank, pos, prank, ppos, exact, group))
+        times[dt] = (
+            median_ms(lambda: ivf.grouped_scan(q, v, a, b, s, cmax)),
+            median_ms(lambda: ivf.grouped_scan_plain(q, v, a, b, s, cmax), reps=5),
+        )
+        print(f"[kernels] grouped_scan {dt} nlist={nlist} cmax={cmax} s={s}: kernel "
+              f"{times[dt][0]:.3f} ms, plain {times[dt][1]:.3f} ms, max |rank err| {errs[-1]:.3g} (tolerance {RTOL:g} * (1 + |r|))",
+              flush=True)
+    entry.update(max_abs_err=max(errs), ms=times[torch.float32][0], plain_ms=times[torch.float32][1])
+    out.append(entry)
+    del v32, qg32, v, q, prank, ppos
+    torch.cuda.empty_cache()
+    return out
+
+
+def clustered_rows(rng, n: int) -> np.ndarray:
+    """SIFT-1M-shaped synthetic data: N_CLUSTERS Gaussian clusters in 128-d
+    (unit-norm centers, per-component sigma 0.4/sqrt(d), as bench.py)."""
+    centers = rng.standard_normal((N_CLUSTERS, DIMS), dtype=np.float32) / np.sqrt(DIMS)
+    rows = rng.standard_normal((n, DIMS), dtype=np.float32)
+    rows *= np.float32(0.4 / np.sqrt(DIMS))
+    rows += centers[rng.integers(0, N_CLUSTERS, size=n)]
+    return rows
+
+
+def exact_top_k(data: torch.Tensor, queries: torch.Tensor, k: int) -> np.ndarray:
+    """Exact cosine top-k ids on the card, in chunks of rows."""
+    from vector_store_tpu.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.ops.distance import pairwise_distance
+    from vector_store_tpu_torch.ops.topk import merge_min_k
+
+    qn = queries.norm(dim=1)
+    best_d = torch.full((queries.shape[0], k), float("inf"), device=queries.device)
+    best_i = torch.full((queries.shape[0], k), -1, dtype=torch.int64, device=queries.device)
+    for lo in range(0, data.shape[0], 262_144):
+        block = data[lo : lo + 262_144]
+        d = pairwise_distance(queries, block, SpaceType.COSINE, Quantization.F32, qn, block.norm(dim=1))
+        bd, bi = torch.topk(d, k, dim=1, largest=False)
+        best_d, best_i = merge_min_k(best_d, best_i, bd, bi + lo)
+    return best_i.cpu().numpy()
+
+
+async def service_phase(device, card: str) -> dict:
+    import aiohttp
+
+    from vector_store_tpu.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
+    from vector_store_tpu.service.config import Config
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+    from vector_store_tpu_torch.run import serve
+
+    rng = np.random.default_rng(SEED + 1)
+    n = SERVICE_ROWS
+    data = clustered_rows(rng, n)
+    pick = rng.integers(0, n, size=N_REQUESTS)
+    queries = data[pick] + rng.standard_normal((N_REQUESTS, DIMS), dtype=np.float32) * np.float32(
+        0.1 / np.sqrt(DIMS)
+    )
+    gt = exact_top_k(torch.from_numpy(data).to(device), torch.from_numpy(queries).to(device), K)
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl", ("pk",)))
+    metadata = make_vs_metadata(dimensions=DIMS)  # COSINE, F32, global
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row((i,), data[i], 100) for i in range(n))))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}/api/v1/indexes/ks/idx"
+
+    t0 = time.perf_counter()
+    service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
+    try:
+        async with aiohttp.ClientSession() as http:
+
+            async def status() -> dict:
+                async with http.get(f"{base}/status") as resp:
+                    return await resp.json() if resp.status == 200 else {}
+
+            async def ann(vector, limit=K) -> dict:
+                body = {"vector": [float(x) for x in vector], "limit": limit}
+                async with http.post(f"{base}/ann", json=body) as resp:
+                    text = await resp.text()
+                    check(resp.status == 200, f"ann answered {resp.status}: {text}")
+                    return json.loads(text)
+
+            async def wait_for(cond, what: str, timeout: float = 600.0):
+                deadline = time.perf_counter() + timeout
+                while not await cond():
+                    check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+                    await asyncio.sleep(0.2)
+
+            async def counted(want: int) -> bool:
+                st = await status()
+                return st.get("count") == want and st.get("status") == "SERVING"
+
+            await wait_for(lambda: counted(n), f"{n} rows")
+            ingest_s = time.perf_counter() - t0
+            engine = service.indexes.get_vs(metadata.key).actor.engine
+
+            async def built() -> bool:
+                return engine.nlist > 0 and engine.maintain_pending() is None
+
+            await wait_for(built, "the IVF build to swap in and settle")
+            settle_s = time.perf_counter() - t0 - ingest_s
+            build_s = sum(sec for phase, sec in engine.maintain_log)
+            rebuilds = sum(1 for phase, _ in engine.maintain_log if phase == "swap")
+            print(f"[service] {n} rows ingested in {ingest_s:.1f} s; IVF nlist={engine.nlist} "
+                  f"cmax={engine.cmax} main={engine._main_rows} delta={engine._delta.size}; "
+                  f"settled {settle_s:.1f} s later", flush=True)
+            check(engine._main_rows >= 0.8 * n, "the IVF main region holds under 80% of the rows")
+
+            # -- the main path, counted ------------------------------------
+            fs.fused_scan.launches = 0
+            ivf.grouped_scan.launches = 0
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat: list[float] = []
+
+            async def one(q):
+                async with sem:
+                    t = time.perf_counter()
+                    res = await ann(q)
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]["pk"]
+
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*(one(q) for q in queries))
+            wall = time.perf_counter() - t1
+            recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt)]))
+            print(f"[service] recall@{K} {recall:.4f} over {N_REQUESTS} requests", flush=True)
+            check(recall >= RECALL_MIN, f"recall@{K} {recall:.4f} < {RECALL_MIN}")
+
+            for i in rng.choice(n, size=16, replace=False):
+                res = await ann(data[i], 3)
+                check(res["primary_keys"]["pk"][0] == int(i) and abs(res["distances"][0]) <= 1e-6,
+                      f"self-query of row {i} returned {res}")
+            new = clustered_rows(rng, 1)[0]
+            await db.db_indexes[metadata.key].push_cdc(vector_row((n,), new, 200))
+            await wait_for(lambda: counted(n + 1), "the CDC row", timeout=60)
+            res = await ann(new, 3)
+            check(res["primary_keys"]["pk"][0] == n and abs(res["distances"][0]) <= 1e-6,
+                  f"CDC row query returned {res}")
+            launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan": ivf.grouped_scan.launches}
+            print(f"[service] launches during the main path: {launches}", flush=True)
+            check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
+            print(
+                f"[service] smoke readings on {card}: ingest {ingest_s:.1f} s for {n} rows, "
+                f"device build slices {build_s:.1f} s over {rebuilds} builds, "
+                f"{N_REQUESTS / wall:.0f} QPS and p50 {1e3 * statistics.median(lat):.1f} ms "
+                f"at {IN_FLIGHT} in flight (client in the same process)",
+                flush=True,
+            )
+            return launches
+    finally:
+        await service.stop()
+
+
+def main() -> None:
+    check(torch.cuda.is_available(), "no CUDA device")
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+
+    from vector_store_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.library()
+    built = "a cached library" if kernels.build_seconds is None else f"nvcc {kernels.build_seconds:.1f} s"
+    print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s ({built})", flush=True)
+    for line in kernels.ptxas_report.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] {line.strip()}", flush=True)
+
+    results = kernel_phase(device)
+    launches = asyncio.run(service_phase(device, card))
+    for entry in results:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"kernels": [{k: e[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")} for e in results]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

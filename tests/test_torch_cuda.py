@@ -1,0 +1,91 @@
+"""The CUDA scan kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU with nvcc (the kernels build at first use)
+and skip elsewhere; on a GPU machine run them with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+Ranks agree within 1e-4 * (1 + |r|) (f32 sums in another order) and every
+returned row is a minimum of its group within that tolerance.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vector_store_tpu_torch.ops import fused_scan, ivf  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+RTOL = 1e-4
+DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _rows(rng, n, d, device, dtype):
+    x = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(device)
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
+
+
+def _assert_close_to_plain(rank, pos, prank, full):
+    assert torch.allclose(rank, prank, rtol=RTOL, atol=RTOL)
+    # the kernel's row holds (within tolerance) its group's minimum
+    won = full.gather(1, pos.long())
+    assert torch.allclose(won, prank, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq", [1, 17, 64])
+def test_fused_scan_matches_plain(cuda, dtype, nq):
+    rng = np.random.default_rng(nq)
+    cap, d, block = 4096, 136, 1024
+    v, q = _rows(rng, cap, d, cuda, dtype), _rows(rng, nq, d, cuda, dtype)
+    a = torch.full((cap,), -2.0, device=cuda)
+    b = torch.rand(cap, device=cuda)
+    b[::7] = fused_scan.INVALID_BIAS
+    before = fused_scan.fused_scan.launches
+    rank, pos = fused_scan.fused_scan(q, v, a, b, block)
+    assert fused_scan.fused_scan.launches == before + 1
+    prank, _ = fused_scan.fused_scan_plain(q, v, a, b, block)
+    full = a * (q.float() @ v.float().T) + b
+    _assert_close_to_plain(rank, pos, prank, full)
+    # each candidate lies in its (block, lane) group
+    col = torch.arange(rank.shape[1], device=cuda)
+    assert torch.equal((pos // block) * fused_scan.LANES + pos % fused_scan.LANES, col.expand_as(pos).int())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grouped_scan_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(1)
+    nlist, cmax, s, d = 16, 384, 24, 64
+    v = _rows(rng, nlist * cmax, d, cuda, dtype)
+    qg = _rows(rng, nlist * s, d, cuda, dtype)
+    a = torch.full((nlist * cmax,), -1.0, device=cuda)
+    b = torch.zeros(nlist * cmax, device=cuda)
+    b[::5] = fused_scan.INVALID_BIAS
+    before = ivf.grouped_scan.launches
+    rank, pos = ivf.grouped_scan(qg, v, a, b, s, cmax)
+    assert ivf.grouped_scan.launches == before + 1
+    prank, _ = ivf.grouped_scan_plain(qg, v, a, b, s, cmax)
+    full = torch.full((nlist * s, nlist * cmax), float("inf"), device=cuda)
+    for c in range(nlist):
+        rows = slice(c * cmax, (c + 1) * cmax)
+        full[c * s : (c + 1) * s, rows] = a[rows] * (qg[c * s : (c + 1) * s].float() @ v[rows].float().T) + b[rows]
+    _assert_close_to_plain(rank, pos, prank, full)
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    v = torch.zeros((1024, 64), device=cuda)
+    a = torch.zeros(1024, device=cuda)
+    with pytest.raises(ValueError):  # mixed devices
+        fused_scan.fused_scan(torch.zeros((2, 64)), v, a, a, 1024)
+    with pytest.raises(TypeError):
+        fused_scan.fused_scan(torch.zeros((2, 64), device=cuda, dtype=torch.float16), v, a, a, 1024)
+    with pytest.raises(ValueError):
+        ivf.grouped_scan(torch.zeros((3, 64), device=cuda), v, a, a, 2, 512)

@@ -1,0 +1,154 @@
+"""The port's HTTP service against the JAX service: the verify-skill flow.
+
+Both services are seeded with the same FakeDb contents (100 rows in 3-d,
+one default index: COSINE, F32, global) and served on local ports; the
+same ANN requests must return the same primary keys with distances within
+1e-6. A self-query returns distance 0.0, a CDC upsert becomes searchable,
+and an index kind the port does not serve yet (local, I8) answers with
+its NotImplementedError instead of another engine.
+"""
+
+import asyncio
+import json
+import socket
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+aiohttp = pytest.importorskip("aiohttp")
+
+from vector_store_tpu.core.types import DbIndexPartitioning, Quantization  # noqa: E402
+from vector_store_tpu.db.fake import (  # noqa: E402
+    FakeDb,
+    FakeIndex,
+    FakeTable,
+    make_vs_metadata,
+    vector_row,
+)
+from vector_store_tpu.service.config import Config  # noqa: E402
+from vector_store_tpu.service.node_state import IndexStatus  # noqa: E402
+
+N, DIMS = 100, 3
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def seeded_db(vecs, **md_kwargs) -> FakeDb:
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl", ("pk",)))
+    rows = [vector_row((i,), vecs[i].tolist(), 100) for i in range(len(vecs))]
+    db.add_index(FakeIndex(metadata=make_vs_metadata(dimensions=DIMS, **md_kwargs), scan=rows))
+    return db
+
+
+async def start(serve_fn, db, **kw):
+    port = free_port()
+    service = await serve_fn(
+        db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.05), **kw
+    )
+    return service, f"http://127.0.0.1:{port}/api/v1/indexes/ks/idx"
+
+
+async def wait_count(http, base, n, timeout=30.0):
+    """Until the index is SERVING with n rows."""
+    deadline = asyncio.get_running_loop().time() + timeout
+    while True:
+        async with http.get(f"{base}/status") as resp:
+            body = await resp.json() if resp.status == 200 else {}
+            if body.get("count") == n and body.get("status") == "SERVING":
+                return
+        if asyncio.get_running_loop().time() > deadline:
+            raise TimeoutError(f"index never reached {n} rows")
+        await asyncio.sleep(0.05)
+
+
+async def ann(http, base, vector, limit, **extra):
+    body = {"vector": list(map(float, vector)), "limit": limit, **extra}
+    async with http.post(f"{base}/ann", json=body) as resp:
+        text = await resp.text()  # error bodies are plain messages
+        return resp.status, json.loads(text) if resp.status == 200 else text
+
+
+async def test_port_serves_like_jax_service():
+    from vector_store_tpu.run import serve as jax_serve
+    from vector_store_tpu_torch.run import serve
+
+    rng = np.random.default_rng(5)
+    vecs = rng.normal(size=(N, DIMS)).astype(np.float32)
+    queries = rng.normal(size=(12, DIMS)).astype(np.float32)
+    jax_db, port_db = seeded_db(vecs), seeded_db(vecs)
+    jax_svc, jax_base = await start(jax_serve, jax_db)
+    port_svc, base = await start(serve, port_db, device=torch.device("cpu"))
+    try:
+        async with aiohttp.ClientSession() as http:
+            await wait_count(http, jax_base, N)
+            await wait_count(http, base, N)
+            for q in queries:
+                _, want = await ann(http, jax_base, q, 5)
+                status, got = await ann(http, base, q, 5)
+                assert status == 200, got
+                assert got["primary_keys"] == want["primary_keys"]
+                np.testing.assert_allclose(got["distances"], want["distances"], rtol=0, atol=1e-6)
+            # self-query: distance exactly 0.0
+            status, got = await ann(http, base, vecs[7], 3)
+            assert got["primary_keys"]["pk"][0] == 7 and got["distances"][0] == 0.0
+            # CDC upsert becomes searchable
+            new = np.array([0.3, -2.0, 0.9], np.float32)
+            await port_db.db_indexes[("ks", "idx")].push_cdc(vector_row((1000,), new.tolist(), 200))
+            await wait_count(http, base, N + 1)
+            status, got = await ann(http, base, new, 1)
+            assert got["primary_keys"]["pk"] == [1000] and got["distances"] == [0.0]
+            # wrong dimensions: 400 from the actor's DimensionMismatch
+            status, _ = await ann(http, base, [1.0, 2.0], 1)
+            assert status == 400
+    finally:
+        await port_svc.stop()
+        await jax_svc.stop()
+
+
+@pytest.mark.parametrize(
+    "md_kwargs",
+    [
+        {"partitioning": DbIndexPartitioning.local(("pk",))},
+        {"quantization": Quantization.I8},
+    ],
+    ids=["local", "i8"],
+)
+async def test_unported_index_kinds_answer_not_implemented(md_kwargs):
+    from vector_store_tpu_torch.run import serve
+
+    vecs = np.random.default_rng(6).normal(size=(10, DIMS)).astype(np.float32)
+    svc, base = await start(serve, seeded_db(vecs, **md_kwargs), device=torch.device("cpu"))
+    try:
+        async with aiohttp.ClientSession() as http:
+            deadline = asyncio.get_running_loop().time() + 10
+            while (entry := svc.indexes.get_vs(("ks", "idx"))) is None or (
+                entry.status is not IndexStatus.SERVING
+            ):
+                assert asyncio.get_running_loop().time() < deadline
+                await asyncio.sleep(0.05)
+            actor = entry.actor
+            assert actor.engine is None and isinstance(actor.unsupported, NotImplementedError)
+            # a local index is reached through its partition restriction
+            restrict = {"restrictions": [{"type": "==", "lhs": "pk", "rhs": 0}], "allow_filtering": True}
+            status, body = await ann(http, base, vecs[0], 1, filter=restrict)
+            assert status == 500 and "not ported yet" in body and "ROADMAP" in body
+            async with http.get(f"{base}/status") as resp:
+                assert resp.status == 500 and "ROADMAP" in await resp.text()
+    finally:
+        await svc.stop()
+
+
+async def test_service_requires_cuda_by_default():
+    from vector_store_tpu_torch.run import build_service
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        await build_service(FakeDb(), Config())

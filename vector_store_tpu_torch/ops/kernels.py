@@ -1,0 +1,115 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with ctypes. The build
+happens at first use (never at import: a CPU-only installation imports
+every module of the port) into ``vector_store_tpu_torch/_build/``, keyed by
+a hash of the sources, so an unchanged checkout builds once.
+
+Each C entry point launches on the stream it is given and returns the
+launch's ``cudaGetLastError()``; :func:`launch` raises on a non-zero code.
+Tensor pointers and the stream travel as ``c_void_p`` (a plain Python int
+would be cut to 32 bits).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# entry point -> (pointer arguments, int arguments incl. the device index);
+# the stream comes last
+_ENTRY_POINTS = {"vst_fused_scan": (6, 6), "vst_grouped_scan": (6, 6)}
+
+_lock = threading.Lock()
+# guards the wrappers' launch counts: searches launch from several
+# executor threads (a batch's dispatch beside another's dropped-pair retry)
+count_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# wall seconds of this process's nvcc build (None: none ran, or a cached
+# library was loaded) and the compiler's resource report (-Xptxas -v)
+build_seconds: float | None = None
+ptxas_report: str = ""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: put it on PATH or set CUDA_HOME to build the "
+        "port's CUDA kernels"
+    )
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    global _lib, build_seconds, ptxas_report
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        digest = hashlib.sha256()
+        for path in sources + sorted(CSRC_DIR.glob("*.cuh")):
+            digest.update(path.name.encode() + path.read_bytes())
+        digest.update(" ".join(ARCH_FLAGS).encode())
+        so = BUILD_DIR / f"libvst_kernels_{digest.hexdigest()[:16]}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                "-o", str(tmp), *map(str, sources),
+            ]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {res.returncode}:\n{res.stderr}"
+                )
+            build_seconds = time.perf_counter() - t0
+            ptxas_report = res.stderr
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = (
+                [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+        lib.vst_error_string.argtypes = [ctypes.c_int]
+        lib.vst_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def launch(name: str, tensors: list[torch.Tensor], ints: list[int]) -> None:
+    """Call entry point ``name`` with the tensors' device pointers, the int
+    arguments, the tensors' device index and PyTorch's current stream on
+    that device; raise if the launch was refused."""
+    lib = library()
+    device = tensors[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name)(
+        *[t.data_ptr() for t in tensors], *ints, device.index or 0, stream
+    )
+    if rc != 0:
+        msg = lib.vst_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,250 @@
+"""Service wiring (parity with reference lib.rs::run + main.rs).
+
+Counterpart of vector_store_tpu/run.py. Builds every actor — node_state,
+internals, memory governor, indexes registry, engine, schema-discovery
+monitor, HTTP app — around an injectable Db (a real ScyllaDB session in
+production, FakeDb in tests) and one torch device, and runs until stopped.
+
+The device defaults to ``cuda`` and the service refuses to start without
+one; tests pass ``torch.device("cpu")``, on which the engines run the
+scan kernels' plain PyTorch versions.
+
+    python -m vector_store_tpu_torch.run   # VECTOR_STORE_* configuration
+
+Multi-process serving (``serve_scaled``: IPC + frontend processes) is not
+ported yet (ROADMAP.md, port queue).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+import signal
+from dataclasses import dataclass
+
+import torch
+from aiohttp import web
+
+from vector_store_tpu.db import Db
+from vector_store_tpu.service.config import Config, ConfigManager, load_config
+from vector_store_tpu.service.indexes import Indexes
+from vector_store_tpu.service.internals import Internals
+from vector_store_tpu.service.metrics import Metrics
+from vector_store_tpu.service.node_state import NodeState
+from vector_store_tpu_torch.http.routes import AppState, build_app
+from vector_store_tpu_torch.service.engine import Engine
+from vector_store_tpu_torch.service.memory import MemoryGovernor
+from vector_store_tpu_torch.service.monitor_indexes import MonitorIndexes
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class Service:
+    config: Config
+    db: Db
+    device: torch.device
+    node_state: NodeState
+    internals: Internals
+    memory: MemoryGovernor
+    metrics: Metrics
+    indexes: Indexes
+    engine: Engine
+    monitor_indexes: MonitorIndexes
+    app: web.Application
+    http_server: object | None = None  # http.server.HttpServer when bound
+
+    async def stop(self) -> None:
+        await self.monitor_indexes.stop()
+        await self.engine.stop()
+        await self.memory.stop()
+        task = getattr(self, "_conn_watch", None)
+        if task is not None:
+            task.cancel()
+        session = getattr(self.db, "session", None)
+        if session is not None and hasattr(session, "stop"):
+            await session.stop()
+        if self.http_server is not None:
+            await self.http_server.stop()
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The engines' device: ``cuda`` unless given; a CUDA device must exist."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the service serves from an NVIDIA GPU "
+            "(pass device=torch.device('cpu') to run the plain PyTorch path)"
+        )
+    return device
+
+
+def make_scylla_db(config: Config, metrics=None, internals=None):
+    """Production data plane: pure-python CQL v4 session (reconnect loop,
+    auth, TLS) + ScyllaDB schema/scan/CDC client, both reused from the JAX
+    package (reference db.rs:258-367 session actor)."""
+    import ssl as ssl_mod
+
+    from vector_store_tpu.db.cql.session import CqlSession
+    from vector_store_tpu.db.scylla import ScyllaDb
+
+    password = None
+    if config.scylladb_password_file:
+        with open(config.scylladb_password_file) as f:
+            password = f.read().strip()
+    ssl_ctx = None
+    if config.scylladb_certificate_file:
+        ssl_ctx = ssl_mod.create_default_context(cafile=config.scylladb_certificate_file)
+        ssl_ctx.check_hostname = False
+    session = CqlSession(
+        config.scylladb_uri,
+        username=config.scylladb_username,
+        password=password,
+        ssl=ssl_ctx,
+    )
+    session.start()
+    return ScyllaDb(
+        session,
+        cdc_safety_interval=config.cdc_safety_interval,
+        cdc_sleep_interval=config.cdc_sleep_interval,
+        cdc_fine_safety_interval=config.cdc_fine_safety_interval,
+        cdc_fine_sleep_interval=config.cdc_fine_sleep_interval,
+        metrics=metrics,
+        internals=internals,
+    )
+
+
+async def build_service(
+    db: Db, config: Config | None = None, device: torch.device | str | None = None
+) -> Service:
+    config = config or load_config()
+    device = resolve_device(device)
+    if config.usearch_simulator or config.opensearch_uri:
+        raise NotImplementedError(
+            "the usearch simulator and OpenSearch engines are not ported yet "
+            "(ROADMAP.md, port queue)"
+        )
+
+    node_state = NodeState()
+    internals = Internals()
+    memory = MemoryGovernor(device, limit_bytes=config.memory_limit)
+    metrics = Metrics()
+    indexes = Indexes()
+
+    from vector_store_tpu.service.worker import Worker
+
+    worker = Worker(threads=config.threads)
+    worker.install_as_default(asyncio.get_running_loop())
+
+    engine = Engine(
+        db,
+        indexes,
+        node_state,
+        memory=memory,
+        metrics=metrics,
+        internals=internals,
+        engine_kind=config.engine_kind,
+        device=device,
+    )
+    monitor = MonitorIndexes(
+        db,
+        engine,
+        node_state,
+        interval=config.monitor_indexes_interval,
+        alter_index_simulator=config.alter_index_simulator,
+    )
+
+    state = AppState(
+        indexes,
+        node_state,
+        metrics,
+        internals,
+        engine=engine,
+        use_tls=config.use_tls,
+    )
+    app = build_app(state)
+
+    node_state.connecting_to_db()
+    session = getattr(db, "session", None)
+    conn_watch = None
+    if session is not None and hasattr(session, "_connected"):
+        # real CQL session: CONNECTING_TO_DB until the session handshake lands
+        async def _watch_connected() -> None:
+            await session._connected.wait()
+            node_state.connected_to_db()
+
+        conn_watch = asyncio.get_running_loop().create_task(_watch_connected())
+    else:
+        node_state.connected_to_db()
+
+    memory.start()
+    engine.start()
+    monitor.start()
+
+    service = Service(
+        config=config,
+        db=db,
+        device=device,
+        node_state=node_state,
+        internals=internals,
+        memory=memory,
+        metrics=metrics,
+        indexes=indexes,
+        engine=engine,
+        monitor_indexes=monitor,
+        app=app,
+    )
+    service._conn_watch = conn_watch
+    return service
+
+
+async def serve(
+    db: Db, config: Config | None = None, device: torch.device | str | None = None
+) -> Service:
+    """Build the service AND bind the HTTP listener(s): plain or TLS main
+    endpoint plus the optional mTLS endpoint (http/server.py)."""
+    from vector_store_tpu.http.server import HttpServer
+
+    service = await build_service(db, config, device)
+    http_server = HttpServer(service.app, service.config)
+    await http_server.start()
+    service.http_server = http_server
+    return service
+
+
+async def main() -> None:
+    # clap-parity: the only CLI flag is --version (reference main.rs:20-22)
+    import sys
+
+    import vector_store_tpu
+    import vector_store_tpu_torch
+
+    if "--version" in sys.argv:
+        print(f"{vector_store_tpu.SERVICE_NAME} {vector_store_tpu_torch.__version__}")
+        return
+    logging.basicConfig(level=logging.INFO)
+    config_manager = ConfigManager()
+    config_manager.install_sighup()
+    config = config_manager.config
+
+    # VECTOR_STORE_FAKE_DB=true boots the in-memory fake instead of a
+    # ScyllaDB cluster (demos / tests without a cluster)
+    if os.environ.get("VECTOR_STORE_FAKE_DB", "").lower() == "true":
+        from vector_store_tpu.db.fake import FakeDb
+
+        db = FakeDb()
+    else:
+        db = make_scylla_db(config)
+    service = await serve(db, config)
+
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    await service.stop()
+
+
+if __name__ == "__main__":
+    asyncio.run(main())

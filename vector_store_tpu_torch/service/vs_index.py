@@ -1,0 +1,618 @@
+"""VS index actor: owns one device index and schedules device work.
+
+Counterpart of vector_store_tpu/service/vs_index.py (the usearch actor of
+the reference, vs_index/usearch.rs). The device serves hundreds of queries
+per kernel launch, so the actor's core is a micro-batching loop:
+
+- incoming ANN requests accumulate in a queue; the loop drains whatever is
+  pending (bounded by MAX_SEARCH_BATCH) into ONE device search;
+- search is prioritized over modifications (the reference's biased recv,
+  vs_index/mod.rs:30-45); modify batches apply between search batches, and
+  an aged modify preempts new dispatch for one bounded batch;
+- searches are pipelined: kernels launch as batches arrive while one
+  collector task pulls finished batches;
+- the engine's rebuild runs as background slices alongside searches, with
+  only its swap and re-entry slices exclusive;
+- filtered search post-filters an oversampled result set against the
+  table, growing the oversample until satisfied, then falls back to an
+  exact host scan;
+- adds are dropped when the memory governor says Cannot (usearch.rs:1156).
+
+Engine choice: global F32/F16/BF16 indexes get the IVF engine ("auto" or
+"ivf") or the flat engine ("flat"). Every other kind raises
+NotImplementedError naming its ROADMAP.md entry; no other engine stands in.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import math
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vector_store_tpu.core.distance import Distance
+from vector_store_tpu.core.filters import Restriction
+from vector_store_tpu.core.ids import PartitionId, PrimaryId
+from vector_store_tpu.core.keys import PrimaryKey
+from vector_store_tpu.core.types import IndexMetadata, SpaceType
+from vector_store_tpu.table import (
+    AddDocument,
+    AddVector,
+    AddVectorBlock,
+    Operation,
+    RemoveBeforeAddValue,
+    RemovePartition,
+    RemoveValue,
+    Table,
+)
+from vector_store_tpu.utils import hotpath
+from vector_store_tpu_torch.engine.flat import FlatDeviceIndex, SearchResult
+from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex, ivf_supports
+
+logger = logging.getLogger(__name__)
+
+MAX_SEARCH_BATCH = 2048
+MAX_MODIFY_BATCH = 8192
+MERGE_BATCH = 4096
+# a modify that has waited this long (or a full batch) preempts NEW search
+# dispatch for one bounded batch, so query load cannot starve ingestion
+MODIFY_MAX_AGE_S = 0.10
+OVERSAMPLE_STEPS = (4, 16, 64)
+MAX_INFLIGHT = 4  # dispatched batches awaiting their pull
+EXCLUSIVE_SLICES = ("swap", "reenter")  # maintenance that mutates serving state
+
+
+class DimensionMismatch(ValueError):
+    """Query vector dimensionality differs from the index
+    (vs_index/validator.rs -> HTTP 400)."""
+
+
+def make_engine(
+    metadata: IndexMetadata, engine_kind: str, device: torch.device
+) -> IvfDeviceIndex | FlatDeviceIndex:
+    """The device engine for one index, or NotImplementedError for what the
+    port does not serve yet."""
+    vs = metadata.vs_options
+    if not metadata.partitioning.is_global:
+        raise NotImplementedError(
+            "local (per-partition) vector indexes are not ported yet "
+            "(ROADMAP.md, port queue: partition_rank_scan with local indexes)"
+        )
+    if not ivf_supports(vs.space_type, vs.quantization):
+        raise NotImplementedError(
+            f"{vs.quantization.name} storage / {vs.space_type.name} distance is "
+            "not ported yet (ROADMAP.md, port queue: I8 storage, B1/Hamming)"
+        )
+    if engine_kind not in ("auto", "ivf", "flat"):
+        raise NotImplementedError(
+            f"engine {engine_kind!r} is not ported yet (ROADMAP.md, port queue: "
+            "graph engine, sharded engines, simulator/opensearch)"
+        )
+    rescoring = vs.rescoring is not False
+    if engine_kind == "flat":
+        return FlatDeviceIndex(
+            int(vs.dimensions),
+            space_type=vs.space_type,
+            quantization=vs.quantization,
+            device=device,
+            rescoring=rescoring,
+        )
+    # expansion_search plays the nprobe role (reference ef_search 64)
+    return IvfDeviceIndex(
+        int(vs.dimensions),
+        space_type=vs.space_type,
+        quantization=vs.quantization,
+        device=device,
+        nprobe=max(8, int(vs.expansion_search) // 2),
+        oversample=None if vs.oversampling is None else math.ceil(vs.oversampling),
+        rescoring=rescoring,
+    )
+
+
+@dataclass
+class _SearchRequest:
+    vector: np.ndarray
+    limit: int
+    restrictions: Optional[list[Restriction]]
+    future: asyncio.Future
+    oversample: int = 1  # grows on the post-filter ladder
+
+
+class VsIndexActor:
+    def __init__(
+        self,
+        metadata: IndexMetadata,
+        table: Table,
+        memory=None,  # MemoryGovernor | None
+        metrics=None,  # Metrics | None
+        engine_kind: str = "auto",
+        internals=None,  # Internals | None (debug counters)
+        *,
+        device: torch.device,
+    ) -> None:
+        self.metadata = metadata
+        self.table = table
+        self.memory = memory
+        self.metrics = metrics
+        self.internals = internals
+        vs = metadata.vs_options
+        self.dimensions = int(vs.dimensions)
+        self.space_type = vs.space_type
+        self.quantization = vs.quantization
+        # an index this port cannot serve stays registered and answers every
+        # request with the NotImplementedError (the routes report it)
+        self.unsupported: NotImplementedError | None = None
+        self.engine = None
+        try:
+            self.engine = make_engine(metadata, engine_kind, device)
+        except NotImplementedError as exc:
+            logger.error("index %s cannot be served: %s", metadata.key, exc)
+            self.unsupported = exc
+        self.engine_kind = engine_kind
+        if self.memory is not None and self.engine is not None:
+            self.memory.register_engine(self.engine)
+
+        self._search_queue: asyncio.Queue = asyncio.Queue()
+        self._modify_queue: list[Operation] = []
+        self._modify_event = asyncio.Event()
+        self._task: asyncio.Task | None = None
+        self._stopped = False
+        self._dropped_adds = 0
+        self._escalations = 0  # post-filter oversample requeues
+        self._exact_fallbacks = 0  # exact host-scan completions
+        # dispatched (batch, pending) pairs awaiting one collector pass
+        self._inflight_collects: list[tuple[list[_SearchRequest], object]] = []
+        self._collector: asyncio.Task | None = None
+        # background maintenance slice in flight (and its kind)
+        self._maintain_fut: asyncio.Future | None = None
+        self._maintain_kind: str | None = None
+        self._modify_oldest = 0.0  # enqueue time of the oldest unapplied modify
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self) -> None:
+        if self.engine is not None:
+            self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        self._stopped = True
+        self._modify_event.set()
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):
+                pass
+
+    # -- public API (VsIndexSearch/Modify parity, vs_index/actor.rs) ----------
+
+    async def ann(self, vector: list[float], limit: int) -> list[tuple[PrimaryKey, Distance]]:
+        return await self._submit(vector, limit, None)
+
+    async def filtered_ann(
+        self, vector: list[float], restrictions: list[Restriction], limit: int
+    ) -> list[tuple[PrimaryKey, Distance]]:
+        return await self._submit(vector, limit, restrictions)
+
+    async def count(self) -> int:
+        if self.unsupported is not None:
+            raise self.unsupported
+        return self.engine.size
+
+    def apply_operations(self, ops: list[Operation]) -> None:
+        """Called by the monitor_items pump."""
+        if self.engine is None:
+            return  # unsupported index: nothing to apply the rows to
+        if not self._modify_queue:
+            self._modify_oldest = time.monotonic()
+        self._modify_queue.extend(ops)
+        self._modify_event.set()
+
+    @property
+    def backlog(self) -> int:
+        return len(self._modify_queue)
+
+    # -- scheduling -------------------------------------------------------------
+
+    async def _submit(self, vector, limit, restrictions):
+        if self.unsupported is not None:
+            raise self.unsupported
+        v = np.asarray(vector, dtype=np.float32)
+        if v.ndim != 1 or v.shape[0] != self.dimensions:
+            raise DimensionMismatch(
+                f"Invalid query vector size {v.shape[-1] if v.ndim else 0}, "
+                f"expected {self.dimensions}"
+            )
+        fut = asyncio.get_running_loop().create_future()
+        await self._search_queue.put(_SearchRequest(v, limit, restrictions or None, fut))
+        return await fut
+
+    async def _run(self) -> None:
+        """Scheduling loop: dispatch searches first (pipelined), apply aged
+        or drained modifies, run maintenance slices (concurrent ones beside
+        searches, the swap/re-entry ones exclusively), else wait."""
+        loop = asyncio.get_running_loop()
+        inflight: set[asyncio.Future] = set()
+        has_pending_api = hasattr(self.engine, "maintain_pending")
+        maintain_recheck = 0.0  # throttle for the idle maintain_pending scan
+        exclusive_after = 0.0  # grace window between exclusive slices
+
+        def modify_ok() -> bool:
+            """May a modify batch apply now? Always without a maintenance
+            slice in flight; beside every slice but the `start` snapshot
+            (which reads the host tables a modify writes) for engines that
+            track mid-build mutations."""
+            if self._maintain_fut is None:
+                return True
+            return (
+                getattr(self.engine, "maintain_modify_safe", False)
+                and self._maintain_kind != "start"
+            )
+
+        def _maintain_done(f: asyncio.Future) -> None:
+            self._maintain_fut = None
+            self._maintain_kind = None
+            if not f.cancelled() and f.exception() is not None:
+                logger.error(
+                    "background maintenance slice failed", exc_info=f.exception()
+                )
+            self._modify_event.set()  # wake the idle wait
+
+        def launch(batches: list[list[_SearchRequest]]) -> asyncio.Future:
+            fut = loop.run_in_executor(None, self._begin_window, batches)
+
+            def _done(f: asyncio.Future, batches=batches) -> None:
+                inflight.discard(f)
+                if f.cancelled():
+                    return
+                exc = f.exception()
+                if exc is not None:
+                    for b in batches:
+                        for req in b:
+                            if not req.future.done():
+                                req.future.set_exception(exc)
+                    return
+                self._inflight_collects.extend(f.result())
+                if self._collector is None or self._collector.done():
+                    self._collector = loop.create_task(self._collect_loop())
+
+            fut.add_done_callback(_done)
+            inflight.add(fut)
+            return fut
+
+        while not self._stopped:
+            # 0) background maintenance: every slice but swap/reenter runs
+            # beside live searches, so rebuilds progress under load
+            now = loop.time()
+            kind = None
+            if has_pending_api and self._maintain_fut is None and now >= maintain_recheck:
+                kind = self.engine.maintain_pending()
+                if kind is None:
+                    # idle: look again after the next state change, and not
+                    # more often than this under search load
+                    maintain_recheck = now + 0.05
+                elif kind not in EXCLUSIVE_SLICES:
+                    self._maintain_kind = kind
+                    fut = loop.run_in_executor(None, self.engine.maintain, 1)
+                    fut.add_done_callback(_maintain_done)
+                    self._maintain_fut = fut
+            # exclusive slices stop new dispatch, drain, and run in step 3;
+            # after one, a grace window lets queued searches dispatch first
+            swap_due = kind in EXCLUSIVE_SLICES and now >= exclusive_after
+            wake_at = exclusive_after if kind in EXCLUSIVE_SLICES and not swap_due else None
+
+            modify_due = (
+                self._modify_queue
+                and modify_ok()
+                and (
+                    time.monotonic() - self._modify_oldest >= MODIFY_MAX_AGE_S
+                    or len(self._modify_queue) >= MAX_MODIFY_BATCH
+                )
+            )
+
+            # 1) searches first (biased recv)
+            if (
+                not swap_due
+                and not modify_due
+                and not self._search_queue.empty()
+                and len(inflight) + len(self._inflight_collects) < MAX_INFLIGHT
+            ):
+                batches = [self._drain_searches()]
+                while not self._search_queue.empty() and len(batches) < MAX_INFLIGHT:
+                    batches.append(self._drain_searches())
+                await launch(batches)
+                continue
+
+            if inflight:
+                await asyncio.wait(inflight, return_when=asyncio.FIRST_COMPLETED)
+                continue
+            if self._collector is not None and not self._collector.done():
+                # a pull is in flight; new searches may still arrive
+                getter = asyncio.ensure_future(self._search_queue.get())
+                done, _ = await asyncio.wait(
+                    [getter, self._collector], return_when=asyncio.FIRST_COMPLETED
+                )
+                if getter in done:
+                    self._search_queue.put_nowait(getter.result())
+                else:
+                    getter.cancel()
+                    try:
+                        await getter
+                    except (asyncio.CancelledError, Exception):
+                        pass
+                continue
+
+            # 2) modifications (pipeline drained)
+            if self._modify_queue and modify_ok():
+                ops = self._modify_queue[:MAX_MODIFY_BATCH]
+                del self._modify_queue[: len(ops)]
+                self._modify_oldest = time.monotonic()
+                try:
+                    await loop.run_in_executor(None, self._apply_ops_batch, ops)
+                except Exception:
+                    # a poisoned batch must not kill the actor loop
+                    logger.exception("dropping modify batch of %d ops after failure", len(ops))
+                maintain_recheck = 0.0  # the batch may have made a rebuild due
+                continue
+
+            # 3) exclusive maintenance (swap / re-entry slices)
+            if swap_due:
+                try:
+                    await loop.run_in_executor(None, self.engine.maintain, MERGE_BATCH)
+                except Exception:
+                    logger.exception("exclusive maintenance slice failed")
+                exclusive_after = loop.time() + 0.25
+                maintain_recheck = 0.0
+                continue
+
+            # idle: wait for work (clear-then-recheck against lost wakeups)
+            self._modify_event.clear()
+            if not self._search_queue.empty() or (self._modify_queue and modify_ok()):
+                continue
+            getter = asyncio.ensure_future(self._search_queue.get())
+            waiter = asyncio.ensure_future(self._modify_event.wait())
+            timeout = None if wake_at is None else max(0.0, wake_at - loop.time())
+            try:
+                done, pending = await asyncio.wait(
+                    [getter, waiter], timeout=timeout, return_when=asyncio.FIRST_COMPLETED
+                )
+            except asyncio.CancelledError:
+                getter.cancel()
+                waiter.cancel()
+                raise
+            for p in pending:
+                p.cancel()
+                try:
+                    await p
+                except (asyncio.CancelledError, Exception):
+                    pass
+            if getter in done:
+                self._search_queue.put_nowait(getter.result())
+
+    def _drain_searches(self) -> list[_SearchRequest]:
+        batch: list[_SearchRequest] = []
+        while len(batch) < MAX_SEARCH_BATCH:
+            try:
+                batch.append(self._search_queue.get_nowait())
+            except asyncio.QueueEmpty:
+                break
+        return batch
+
+    async def _collect_loop(self) -> None:
+        """Drains in-flight searches until none remain (one at a time)."""
+        loop = asyncio.get_running_loop()
+        while self._inflight_collects and not self._stopped:
+            items = self._inflight_collects
+            self._inflight_collects = []
+            try:
+                await loop.run_in_executor(None, self._collect_batches, items)
+            except Exception as exc:
+                for batch, _ in items:
+                    for req in batch:
+                        if not req.future.done():
+                            req.future.set_exception(exc)
+
+    # executed in a worker thread
+    @hotpath.measure
+    def _begin_window(self, batches: list[list[_SearchRequest]]):
+        """Launch one device search per batch (no waiting)."""
+        out = []
+        for batch in batches:
+            if not batch:
+                continue
+            k = max(r.limit * r.oversample for r in batch)
+            k = min(k, max(self.engine.size, 1))
+            queries = np.stack([r.vector for r in batch])
+            out.append((batch, self.engine.search_begin(queries, k)))
+        return out
+
+    # executed in a worker thread
+    @hotpath.measure
+    def _collect_batches(self, items) -> None:
+        """Pull and resolve every in-flight batch. Filtered requests whose
+        post-filtered results come up short are requeued with a larger
+        oversample; past the top step they finish on the exact host scan."""
+        all_results = self.engine.collect_many([p for _, p in items])
+        finished: list[tuple[_SearchRequest, list]] = []
+        requeue: list[_SearchRequest] = []
+        terminal: list[_SearchRequest] = []
+        loop = None
+        for (batch, _), results in zip(items, all_results):
+            k_used = max(r.limit * r.oversample for r in batch)
+            for req, res in zip(batch, results):
+                loop = loop or req.future.get_loop()
+                resolved = self._resolve(req, res)
+                if len(resolved) >= req.limit or self._exhausted(res, k_used):
+                    finished.append((req, resolved[: req.limit]))
+                elif req.oversample >= OVERSAMPLE_STEPS[-1]:
+                    terminal.append(req)
+                else:
+                    req.oversample = next(s for s in OVERSAMPLE_STEPS if s > req.oversample)
+                    self._escalations += 1
+                    self._count("oversample_escalations")
+                    requeue.append(req)
+        for req in terminal:
+            self._finish_last(req)
+        if loop is not None and (finished or requeue):
+            # one loop wakeup for the whole collect
+            loop.call_soon_threadsafe(self._finish_many, finished, requeue)
+
+    def _finish_many(self, finished, requeue) -> None:
+        for req, result in finished:
+            if not req.future.done():
+                req.future.set_result(result)
+        for req in requeue:
+            if not req.future.done():
+                self._search_queue.put_nowait(req)
+        if requeue:
+            self._modify_event.set()  # wake the scheduler if idle
+
+    def _count(self, name: str, amount: int = 1) -> None:
+        """Mirror a filtered-path counter into /api/internals/counters."""
+        if self.internals is not None:
+            self.internals.increment(f"vs_index_{name}", amount)
+
+    def _exhausted(self, res, k_used: int) -> bool:
+        """Has the whole index been considered?"""
+        return res.slots.size >= self.engine.size or k_used >= self.engine.size
+
+    # executed in a worker thread
+    def _finish_last(self, req: _SearchRequest) -> None:
+        """Oversample steps exhausted: rank the whole index exactly on the
+        host mirror (the device path caps candidates at nprobe*128 per
+        query), then post-filter in bounded chunks."""
+        self._exact_fallbacks += 1
+        self._count("exact_host_fallbacks")
+        if hasattr(self.engine, "search_exact_host"):
+            res = self.engine.search_exact_host(req.vector, self.engine.size)
+        else:
+            res = self.engine.search(req.vector[None, :], max(self.engine.size, 1))[0]
+        out: list = []
+        step = max(req.limit * OVERSAMPLE_STEPS[-1], 1024)
+        for lo in range(0, res.slots.size, step):
+            chunk = slice(lo, lo + step)
+            out.extend(
+                self._resolve(
+                    req,
+                    SearchResult(res.slots[chunk], res.epochs[chunk], res.distances[chunk]),
+                )
+            )
+            if len(out) >= req.limit:
+                break
+        self._finish(req, out[: req.limit])
+
+    def _resolve(self, req: _SearchRequest, res: SearchResult) -> list:
+        """Slot/epoch hits -> (PrimaryKey, Distance), dropping stale epochs
+        and rows failing the restrictions (usearch.rs:1067-1154)."""
+        out: list[tuple[PrimaryKey, Distance]] = []
+        pid = PartitionId.global_for(self.table.index_id(self.metadata.key))
+        for slot, epoch, dist in zip(res.slots, res.epochs, res.distances):
+            primary_id = PrimaryId.new(int(slot), int(epoch))
+            if req.restrictions and not all(
+                self.table.is_valid_for(pid, primary_id, r) for r in req.restrictions
+            ):
+                continue
+            pk = self.table.primary_key(pid, primary_id)
+            if pk is None:
+                continue
+            out.append((pk, self._distance(float(dist))))
+        return out
+
+    def _distance(self, d: float) -> Distance:
+        if self.space_type is SpaceType.COSINE:
+            d = min(max(d, 0.0), 2.0)
+        elif self.space_type is SpaceType.EUCLIDEAN:
+            d = max(d, 0.0)
+        return Distance(d, self.space_type)
+
+    def _finish(self, req: _SearchRequest, result) -> None:
+        loop = req.future.get_loop()
+        loop.call_soon_threadsafe(
+            lambda: req.future.set_result(result) if not req.future.done() else None
+        )
+
+    # executed in a worker thread
+    @hotpath.measure
+    def _apply_ops_batch(self, ops: list[Operation]) -> None:
+        """Batch Operation deltas into bulk device calls."""
+        can_add = self.memory.can_allocate if self.memory is not None else True
+        add_slots: list[int] = []
+        add_epochs: list[int] = []
+        add_vecs: list[np.ndarray] = []
+        remove_slots: list[int] = []
+        seen_add: dict[int, int] = {}  # slot -> position in add arrays
+        rm_before_add: set[int] = set()  # slots whose old value must go away
+        blocks: list[AddVectorBlock] = []  # columnar bulk inserts (fresh slots)
+
+        for op in ops:
+            if isinstance(op, AddVectorBlock):
+                if not can_add:
+                    self._dropped_adds += len(op)
+                elif op.vectors.shape[1] != self.dimensions:
+                    logger.warning(
+                        "dropping %d-row bulk insert with wrong dimensions %d != %d",
+                        len(op), op.vectors.shape[1], self.dimensions,
+                    )
+                else:
+                    blocks.append(op)
+            elif isinstance(op, AddVector):
+                if not can_add:
+                    self._dropped_adds += 1
+                    continue
+                vec = np.asarray(op.vector, dtype=np.float32)
+                if vec.shape[0] != self.dimensions:
+                    logger.warning(
+                        "dropping vector with wrong dimensions %d != %d",
+                        vec.shape[0], self.dimensions,
+                    )
+                    continue
+                slot = op.primary_id.slot
+                pos = seen_add.get(slot)
+                if pos is not None:  # LWW within the batch
+                    add_epochs[pos] = op.primary_id.epoch
+                    add_vecs[pos] = vec
+                else:
+                    seen_add[slot] = len(add_slots)
+                    add_slots.append(slot)
+                    add_epochs.append(op.primary_id.epoch)
+                    add_vecs.append(vec)
+            elif isinstance(op, RemoveValue):
+                slot = op.primary_id.slot
+                pos = seen_add.pop(slot, None)
+                if pos is not None:  # add then remove within one batch
+                    add_slots[pos] = -1
+                remove_slots.append(slot)
+            elif isinstance(op, RemoveBeforeAddValue):
+                # the paired add overwrites the slot with a new epoch, but it
+                # may be dropped (memory gate, wrong dims): remember the slot
+                rm_before_add.add(op.primary_id.slot)
+            elif isinstance(op, RemovePartition):
+                continue  # global indexes only
+            elif isinstance(op, AddDocument):
+                logger.warning("AddDocument sent to a VS index; ignoring")
+
+        # RemoveBeforeAddValue whose paired add did not land: remove the
+        # old-epoch vector explicitly
+        landed = {add_slots[p] for p in seen_add.values() if add_slots[p] >= 0}
+        remove_slots.extend(rm_before_add - landed)
+        if remove_slots:
+            self.engine.remove_batch(np.asarray(remove_slots, dtype=np.int64))
+        # ONE engine dispatch for per-row adds and columnar blocks together
+        # (block slots are fresh and unique: Table.upsert_scan)
+        live = [i for i, s in enumerate(add_slots) if s >= 0]
+        if live or blocks:
+            slots = [b.slots for b in blocks]
+            epochs = [b.epochs for b in blocks]
+            vecs = [b.vectors for b in blocks]
+            if live:
+                slots.append(np.asarray([add_slots[i] for i in live], dtype=np.int64))
+                epochs.append(np.asarray([add_epochs[i] for i in live], dtype=np.int32))
+                vecs.append(np.stack([add_vecs[i] for i in live]))
+            self.engine.upsert_batch(
+                np.concatenate(slots), np.concatenate(epochs), np.concatenate(vecs)
+            )
