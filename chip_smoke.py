@@ -10,19 +10,34 @@ failure:
 1. device: CUDA present; the card's name and power limit (nvidia-smi).
 2. build: the scan kernels of csrc/ compiled with nvcc for sm_90a.
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the default ANN path's shapes, F32 and BF16: the fused scan over
-   1,000,000 x 128 rows (capacity rounded up to the scan block) with 1024
-   queries; the grouped scan over nlist 2048 x cmax 768 with the slot
-   budget of a 1024-query batch at nprobe 32. Ranks agree within
+   its path's shapes, F32 and BF16: the fused scan over 1,000,000 x 128
+   rows (capacity rounded up to the scan block) with 1024 queries; the
+   grouped scan over nlist 2048 x cmax 768 with the slot budget of a
+   1024-query batch at nprobe 32; the partition scan over the
+   partition-1000k mirror (P_cap 2048 x pmax 1024 positions, ~5% empty,
+   1025 live buckets) at B = 2048 and B = 8. Ranks agree within
    1e-4 * (1 + |r|); positions are equal except where the kernel's row
    ties the plain winner within that tolerance in the same group. Median
-   times over CUDA events after warm-up.
+   times over CUDA events after warm-up. At the same two batch sizes, the
+   local index's directory search (partition_candidates) is timed against
+   the masked full scan over 1,000,000 rows: the crossover the flat engine
+   routes on (PART_CROSSOVER).
 4. service: the port's HTTP service (run.serve) over FakeDb with one
    default vector index (COSINE, F32, global) of SERVICE_ROWS clustered
    128-d rows; ANN requests with 64 in flight, recall@10 against exact f32
    ground truth computed on the card (>= 0.90), self-queries and one CDC
-   upsert found first at distance 0. Both kernels' launch counts are reset
-   before and read after this phase, and must be > 0.
+   upsert found first at distance 0. The fused and grouped scans' launch
+   counts are reset before and read after this phase, and must be > 0.
+5. local service: a new service over one local (per-partition) index, the
+   partition-1000k configuration of vector_store_tpu/benchkit/scale.py
+   (COSINE, BF16, SERVICE_ROWS clustered rows in 1025 partitions, row i in
+   partition i % 1025), started after phase 4's service stopped. ANN
+   requests restricted to one partition with 64 in flight: every key in its
+   partition, recall@10 against the exact top-10 of the partition
+   (>= 0.90), self-queries, one CDC insert and one CDC update of a row's
+   vector in its own partition found first at distance 0. The partition
+   scan's launch count is reset before and read after the requests, and
+   must be > 0.
 
 The last three lines of standard output are: one JSON object describing
 the kernels, the nvidia-smi name/power-limit line, and
@@ -32,6 +47,7 @@ the kernels, the nvidia-smi name/power-limit line, and
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import socket
 import statistics
@@ -44,6 +60,8 @@ import torch
 SEED = 20261016
 DIMS = 128
 SERVICE_ROWS = 1_000_000
+LOCAL_PARTS = 1025  # partition-1000k: ~976 rows a partition
+PART_PCAP, PART_PMAX = 2048, 1024  # its directory geometry after ingest
 N_CLUSTERS = 256
 N_REQUESTS = 1024
 IN_FLIGHT = 64
@@ -185,7 +203,85 @@ def kernel_phase(device) -> list[dict]:
     out.append(entry)
     del v32, qg32, v, q, prank, ppos
     torch.cuda.empty_cache()
+    out.append(partition_kernel(device, rng))
     return out
+
+
+def partition_kernel(device, rng) -> dict:
+    """Kernel 3 at the partition-1000k mirror's shape, and the directory
+    against the masked scan at the same batch sizes."""
+    from vector_store_tpu.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.engine.flat import PART_CROSSOVER, FlatDeviceIndex
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import partition_scan as ps
+
+    pmax, npos = PART_PMAX, PART_PCAP * PART_PMAX
+    v32 = torch.from_numpy(rng.standard_normal((npos, DIMS), dtype=np.float32)).to(device)
+    v32 /= v32.norm(dim=1, keepdim=True)
+    a = torch.full((npos,), -1.0, device=device)
+    b = torch.zeros((npos,), device=device)
+    b[torch.from_numpy(rng.random(npos) < 0.05).to(device)] = fs.INVALID_BIAS  # empty positions
+    b[LOCAL_PARTS * pmax :] = fs.INVALID_BIAS  # buckets past the live partitions
+    entry = {"name": "partition_scan", "route": "cuda", "source": "vector_store_tpu_torch/csrc/partition_scan.cu",
+             "replaces": "vector_store_tpu/ops/partition_scan.py:55"}
+    errs, times = [], {}
+    for nq in (2048, 8):
+        q32 = torch.from_numpy(rng.standard_normal((nq, DIMS), dtype=np.float32)).to(device)
+        q32 /= q32.norm(dim=1, keepdim=True)
+        bsel = torch.from_numpy(rng.integers(0, LOCAL_PARTS, size=nq).astype(np.int32)).to(device)
+        for dt in (torch.float32, torch.bfloat16):
+            q, v = q32.to(dt), v32.to(dt)
+            rank, pos = ps.partition_scan(v, a, b, q, bsel, pmax)
+            prank, ppos = ps.partition_scan_plain(v, a, b, q, bsel, pmax)
+
+            def exact(qi, rows, q=q, v=v):
+                return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + b[rows]
+
+            def group(qi, col, rows=None, bsel=bsel):
+                if rows is None:
+                    return bsel[qi].long() * pmax + col
+                return (rows // pmax) * pmax + rows % fs.LANES
+
+            errs.append(compare(f"partition_scan/{dt}/B={nq}", rank, pos, prank, ppos, exact, group))
+            times[nq, dt] = (
+                median_ms(lambda: ps.partition_scan(v, a, b, q, bsel, pmax)),
+                median_ms(lambda: ps.partition_scan_plain(v, a, b, q, bsel, pmax), reps=5),
+            )
+            print(f"[kernels] partition_scan {dt} P_cap={PART_PCAP} pmax={pmax} B={nq}: kernel "
+                  f"{times[nq, dt][0]:.3f} ms, plain {times[nq, dt][1]:.3f} ms, max |rank err| {errs[-1]:.3g} "
+                  f"(tolerance {RTOL:g} * (1 + |r|))", flush=True)
+        del v, prank, ppos
+    entry.update(max_abs_err=max(errs), ms=times[2048, torch.float32][0], plain_ms=times[2048, torch.float32][1])
+
+    # directory (kernel path, as the engine runs it) against the masked scan
+    # of a 1M-row BF16 flat array, both at k = 10
+    flat = FlatDeviceIndex(DIMS, SpaceType.COSINE, Quantization.BF16, device=device, initial_capacity=SERVICE_ROWS)
+    cap = flat.capacity
+    flat.vectors[:SERVICE_ROWS] = v32[:SERVICE_ROWS].to(torch.bfloat16)
+    flat.a.fill_(-1.0)
+    flat.b[:SERVICE_ROWS] = 0.0
+    flat.parts[:SERVICE_ROWS] = torch.arange(SERVICE_ROWS, device=device, dtype=torch.int32) % LOCAL_PARTS
+    vb, rows = v32.to(torch.bfloat16), torch.arange(npos, dtype=torch.int32, device=device).view(PART_PCAP, pmax)
+    crossing = {}
+    for nq in (8, 2048):
+        q = torch.from_numpy(rng.standard_normal((nq, DIMS), dtype=np.float32)).to(device).to(torch.bfloat16)
+        bsel = torch.from_numpy(rng.integers(0, LOCAL_PARTS, size=nq).astype(np.int32)).to(device)
+        t_dir = median_ms(lambda: ps.partition_candidates(vb, a, b, rows, q, bsel, k=K, pmax=pmax))
+        t_mask = median_ms(lambda: flat._masked_scan(q, bsel, K), reps=3, warmup=1)
+        crossing[nq] = (t_dir, t_mask)
+        print(f"[kernels] crossover B={nq}: directory {t_dir:.3f} ms (B*pmax = {nq * pmax:,} rows), masked scan "
+              f"{t_mask:.3f} ms ({cap:,} rows), BF16 k={K}", flush=True)
+    # per (query, row) cost of each path at the larger batch, where both are
+    # dominated by their per-row work; the directory wins while
+    # pmax <= (masked / directory) * capacity
+    t_dir, t_mask = crossing[2048]
+    per_row_dir, per_row_mask = t_dir / (2048 * pmax), t_mask / (2048 * cap)
+    print(f"[kernels] per query-row at B=2048: directory {1e6 * per_row_dir:.4f} ns, masked scan "
+          f"{1e6 * per_row_mask:.4f} ns: the directory wins while pmax <= {per_row_mask / per_row_dir:.3f} "
+          f"x capacity (the engine routes on PART_CROSSOVER = {PART_CROSSOVER})", flush=True)
+    del v32, vb, flat
+    torch.cuda.empty_cache()
+    return entry
 
 
 def clustered_rows(rng, n: int) -> np.ndarray:
@@ -215,6 +311,41 @@ def exact_top_k(data: torch.Tensor, queries: torch.Tensor, k: int) -> np.ndarray
     return best_i.cpu().numpy()
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class Http:
+    """The smoke's HTTP client for one index of a running service."""
+
+    def __init__(self, session, base: str) -> None:
+        self.session, self.base = session, base
+
+    async def status(self) -> dict:
+        async with self.session.get(f"{self.base}/status") as resp:
+            return await resp.json() if resp.status == 200 else {}
+
+    async def counted(self, want: int) -> bool:
+        st = await self.status()
+        return st.get("count") == want and st.get("status") == "SERVING"
+
+    async def ann(self, vector, limit=K, **extra) -> dict:
+        body = {"vector": [float(x) for x in vector], "limit": limit, **extra}
+        async with self.session.post(f"{self.base}/ann", json=body) as resp:
+            text = await resp.text()
+            check(resp.status == 200, f"ann answered {resp.status}: {text}")
+            return json.loads(text)
+
+    @staticmethod
+    async def wait_for(cond, what: str, timeout: float = 600.0):
+        deadline = time.perf_counter() + timeout
+        while not await cond():
+            check(time.perf_counter() < deadline, f"timed out waiting for {what}")
+            await asyncio.sleep(0.2)
+
+
 async def service_phase(device, card: str) -> dict:
     import aiohttp
 
@@ -237,37 +368,14 @@ async def service_phase(device, card: str) -> dict:
     db.add_table(FakeTable("ks", "tbl", ("pk",)))
     metadata = make_vs_metadata(dimensions=DIMS)  # COSINE, F32, global
     db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row((i,), data[i], 100) for i in range(n))))
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    base = f"http://127.0.0.1:{port}/api/v1/indexes/ks/idx"
+    port = free_port()
 
     t0 = time.perf_counter()
     service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
     try:
         async with aiohttp.ClientSession() as http:
-
-            async def status() -> dict:
-                async with http.get(f"{base}/status") as resp:
-                    return await resp.json() if resp.status == 200 else {}
-
-            async def ann(vector, limit=K) -> dict:
-                body = {"vector": [float(x) for x in vector], "limit": limit}
-                async with http.post(f"{base}/ann", json=body) as resp:
-                    text = await resp.text()
-                    check(resp.status == 200, f"ann answered {resp.status}: {text}")
-                    return json.loads(text)
-
-            async def wait_for(cond, what: str, timeout: float = 600.0):
-                deadline = time.perf_counter() + timeout
-                while not await cond():
-                    check(time.perf_counter() < deadline, f"timed out waiting for {what}")
-                    await asyncio.sleep(0.2)
-
-            async def counted(want: int) -> bool:
-                st = await status()
-                return st.get("count") == want and st.get("status") == "SERVING"
-
+            client = Http(http, f"http://127.0.0.1:{port}/api/v1/indexes/ks/idx")
+            ann, wait_for, counted = client.ann, client.wait_for, client.counted
             await wait_for(lambda: counted(n), f"{n} rows")
             ingest_s = time.perf_counter() - t0
             engine = service.indexes.get_vs(metadata.key).actor.engine
@@ -329,6 +437,127 @@ async def service_phase(device, card: str) -> dict:
         await service.stop()
 
 
+def partition_top_k(data: torch.Tensor, queries: torch.Tensor, qpart: np.ndarray, k: int) -> np.ndarray:
+    """Exact cosine top-k within each query's partition (row i lies in
+    partition i % LOCAL_PARTS), on the card; as rows."""
+    n = data.shape[0]
+    m = -(-n // LOCAL_PARTS)
+    rows = torch.arange(LOCAL_PARTS, device=data.device)[:, None] + LOCAL_PARTS * torch.arange(m, device=data.device)
+    rows = torch.where(rows < n, rows, -1)
+    out = []
+    for lo in range(0, queries.shape[0], 128):
+        r = rows[torch.from_numpy(qpart[lo : lo + 128]).to(data.device)]
+        v = data[torch.clamp(r, min=0)]  # [c, m, D]
+        q = queries[lo : lo + 128]
+        cos = torch.einsum("bd,bmd->bm", q, v) / (q.norm(dim=1)[:, None] * v.norm(dim=2))
+        d = torch.where(r >= 0, 1.0 - cos, float("inf"))
+        out.append(torch.gather(r, 1, torch.topk(d, k, dim=1, largest=False).indices))
+    return torch.cat(out).cpu().numpy()
+
+
+async def local_phase(device, card: str) -> int:
+    """Phase 5: one local index (partition-1000k) served over HTTP."""
+    import aiohttp
+
+    from vector_store_tpu.core.types import DbIndexPartitioning, Quantization
+    from vector_store_tpu.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
+    from vector_store_tpu.service.config import Config
+    from vector_store_tpu_torch.ops import partition_scan as ps
+    from vector_store_tpu_torch.run import serve
+
+    rng = np.random.default_rng(SEED + 2)
+    n = SERVICE_ROWS
+    data = clustered_rows(rng, n)
+    pick = rng.integers(0, n, size=N_REQUESTS)
+    qpart = pick % LOCAL_PARTS
+    queries = data[pick] + rng.standard_normal((N_REQUESTS, DIMS), dtype=np.float32) * np.float32(
+        0.1 / np.sqrt(DIMS)
+    )
+    gt = partition_top_k(torch.from_numpy(data).to(device), torch.from_numpy(queries).to(device), qpart, K)
+
+    def key(i: int) -> tuple[int, int]:
+        return int(i % LOCAL_PARTS), int(i // LOCAL_PARTS)
+
+    def in_partition(p: int) -> dict:
+        return {"filter": {"restrictions": [{"type": "==", "lhs": "p", "rhs": int(p)}], "allow_filtering": True}}
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl2", ("p", "c")))
+    metadata = make_vs_metadata(
+        index="lidx", table="tbl2", dimensions=DIMS, primary_key_columns=("p", "c"), partition_key_count=1,
+        partitioning=DbIndexPartitioning.local(("p",)), quantization=Quantization.BF16,
+    )  # COSINE
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row(key(i), data[i], 100) for i in range(n))))
+    port = free_port()
+
+    t0 = time.perf_counter()
+    service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
+    try:
+        async with aiohttp.ClientSession() as http:
+            client = Http(http, f"http://127.0.0.1:{port}/api/v1/indexes/ks/lidx")
+            await client.wait_for(lambda: client.counted(n), f"{n} rows")
+            ingest_s = time.perf_counter() - t0
+            engine = service.indexes.get_vs(metadata.key).actor.engine
+            print(f"[local] {n} rows in {LOCAL_PARTS} partitions ingested in {ingest_s:.1f} s; directory "
+                  f"P_cap x pmax = {engine._part_rows_host.shape}, capacity {engine.capacity}, "
+                  f"device bytes {engine.device_bytes:,}", flush=True)
+            check(engine._part_rows_host.shape == (PART_PCAP, PART_PMAX), "unexpected directory geometry")
+
+            async def first_is(vector, p: int, want: tuple[int, int]) -> bool:
+                res = await client.ann(vector, 3, **in_partition(p))
+                keys = res["primary_keys"]
+                return (keys["p"][:1], keys["c"][:1]) == ([want[0]], [want[1]]) and abs(res["distances"][0]) <= 1e-6
+
+            # -- the local path, counted ------------------------------------
+            ps.partition_scan.launches = 0
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat: list[float] = []
+
+            async def one(q, p):
+                async with sem:
+                    t = time.perf_counter()
+                    res = await client.ann(q, K, **in_partition(p))
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]
+
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*(one(q, p) for q, p in zip(queries, qpart)))
+            wall = time.perf_counter() - t1
+            for keys, p in zip(got, qpart):
+                check(set(keys["p"]) == {int(p)}, f"a result left partition {p}: {keys}")
+            recall = float(np.mean([
+                len(set(keys["c"]) & set((t // LOCAL_PARTS).tolist())) / K for keys, t in zip(got, gt)
+            ]))
+            print(f"[local] recall@{K} {recall:.4f} over {N_REQUESTS} partition-restricted requests; "
+                  f"every key in its partition", flush=True)
+            check(recall >= RECALL_MIN, f"local recall@{K} {recall:.4f} < {RECALL_MIN}")
+
+            for i in rng.choice(n, size=8, replace=False):
+                check(await first_is(data[i], key(i)[0], key(i)), f"self-query of row {key(i)} failed")
+            p = key(pick[0])[0]
+            new = clustered_rows(rng, 1)[0]
+            await db.db_indexes[metadata.key].push_cdc(vector_row((p, n), new, 200))
+            await client.wait_for(lambda: client.counted(n + 1), "the CDC insert", timeout=60)
+            check(await first_is(new, p, (p, n)), "the CDC insert was not found first at distance 0")
+            upd_key = key(pick[1])
+            upd = clustered_rows(rng, 1)[0]
+            await db.db_indexes[metadata.key].push_cdc(vector_row(upd_key, upd, 300))
+            await client.wait_for(lambda: first_is(upd, upd_key[0], upd_key), "the CDC update of a row's vector",
+                                  timeout=60)
+            launches = ps.partition_scan.launches
+            print(f"[local] partition_scan launches during the local path: {launches}", flush=True)
+            check(launches > 0, "partition_scan never launched on the local path")
+            print(
+                f"[local] smoke readings on {card}: ingest {ingest_s:.1f} s for {n} rows, "
+                f"{N_REQUESTS / wall:.0f} QPS and p50 {1e3 * statistics.median(lat):.1f} ms "
+                f"at {IN_FLIGHT} in flight (client in the same process)",
+                flush=True,
+            )
+            return launches
+    finally:
+        await service.stop()
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     device = torch.device("cuda", 0)
@@ -347,6 +576,9 @@ def main() -> None:
 
     results = kernel_phase(device)
     launches = asyncio.run(service_phase(device, card))
+    gc.collect()  # the global index leaves the card before the local one arrives
+    torch.cuda.empty_cache()
+    launches["partition_scan"] = asyncio.run(local_phase(device, card))
     for entry in results:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": [{k: e[k] for k in (

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from vector_store_tpu_torch.ops import fused_scan, ivf  # noqa: E402
+from vector_store_tpu_torch.ops import partition_scan as ps  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 RTOL = 1e-4
@@ -80,6 +81,52 @@ def test_grouped_scan_matches_plain(cuda, dtype):
     _assert_close_to_plain(rank, pos, prank, full)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nq,pmax", [(1, 128), (13, 384), (64, 1024)])
+def test_partition_scan_matches_plain(cuda, dtype, nq, pmax):
+    rng = np.random.default_rng(nq + pmax)
+    nparts, d = 9, 72
+    v = _rows(rng, nparts * pmax, d, cuda, dtype)
+    q = _rows(rng, nq, d, cuda, dtype)
+    a = torch.full((nparts * pmax,), -2.0, device=cuda)
+    b = torch.rand(nparts * pmax, device=cuda)
+    b[::6] = fused_scan.INVALID_BIAS  # empty positions
+    b[3 * pmax : 4 * pmax] = fused_scan.INVALID_BIAS  # an empty bucket
+    bsel = torch.from_numpy(rng.integers(0, nparts, size=nq).astype(np.int32)).to(cuda)
+    bsel[0] = 3
+    before = ps.partition_scan.launches
+    rank, pos = ps.partition_scan(v, a, b, q, bsel, pmax)
+    assert ps.partition_scan.launches == before + 1
+    prank, ppos = ps.partition_scan_plain(v, a, b, q, bsel, pmax)
+    sel = bsel.long()
+    full = a.view(nparts, pmax)[sel] * torch.einsum(
+        "bd,bmd->bm", q.float(), v.float().view(nparts, pmax, d)[sel]
+    ) + b.view(nparts, pmax)[sel]
+    off = pos.long() - sel[:, None] * pmax
+    assert bool(((off >= 0) & (off < pmax) & (off % fused_scan.LANES == torch.arange(128, device=cuda))).all())
+    _assert_close_to_plain(rank, off, prank, full)
+    assert torch.equal(pos[0], ppos[0])  # the empty bucket: exact ties go to the first row
+
+
+def test_partition_candidates_on_the_card(cuda):
+    """The kernel path's slots agree with the CPU plain version's."""
+    rng = np.random.default_rng(2)
+    nparts, pmax, d, nq = 5, 256, 64, 16
+    v = _rows(rng, nparts * pmax, d, cuda, torch.bfloat16)
+    q = _rows(rng, nq, d, cuda, torch.bfloat16)
+    a = torch.full((nparts * pmax,), -1.0, device=cuda)
+    b = torch.zeros(nparts * pmax, device=cuda)
+    rows = torch.arange(nparts * pmax, dtype=torch.int32, device=cuda).view(nparts, pmax)
+    rows[:, 200:] = -1
+    b.view(nparts, pmax)[:, 200:] = fused_scan.INVALID_BIAS
+    bsel = torch.from_numpy(rng.integers(-1, nparts, size=nq).astype(np.int32)).to(cuda)
+    got = ps.partition_candidates(v, a, b, rows, q, bsel, k=10, pmax=pmax)
+    cpu = [t.cpu() for t in (v, a, b, rows, q, bsel)]
+    want = ps.partition_candidates(*cpu, k=10, pmax=pmax)
+    assert torch.equal(got.cpu()[:, 0], want[:, 0])
+    assert bool((got.cpu()[bsel.cpu() < 0] == -1).all())
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     v = torch.zeros((1024, 64), device=cuda)
     a = torch.zeros(1024, device=cuda)
@@ -89,3 +136,5 @@ def test_wrappers_refuse_bad_inputs(cuda):
         fused_scan.fused_scan(torch.zeros((2, 64), device=cuda, dtype=torch.float16), v, a, a, 1024)
     with pytest.raises(ValueError):
         ivf.grouped_scan(torch.zeros((3, 64), device=cuda), v, a, a, 2, 512)
+    with pytest.raises(ValueError):  # bsel on the host
+        ps.partition_scan(v, a, a, torch.zeros((2, 64), device=cuda), torch.zeros(2, dtype=torch.int32), 512)

@@ -18,7 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     [
         "vector_store_tpu_torch.run, vector_store_tpu.db.fake",
         "vector_store_tpu_torch.engine, vector_store_tpu_torch.ops.ivf, "
-        "vector_store_tpu_torch.ops.fused_scan, vector_store_tpu_torch.ops.topk",
+        "vector_store_tpu_torch.ops.fused_scan, vector_store_tpu_torch.ops.partition_scan, "
+        "vector_store_tpu_torch.ops.topk",
         "chip_smoke",
     ],
     ids=["serving-stack", "engines-and-ops", "chip-smoke"],

@@ -4,8 +4,13 @@ Both services are seeded with the same FakeDb contents (100 rows in 3-d,
 one default index: COSINE, F32, global) and served on local ports; the
 same ANN requests must return the same primary keys with distances within
 1e-6. A self-query returns distance 0.0, a CDC upsert becomes searchable,
-and an index kind the port does not serve yet (local, I8) answers with
-its NotImplementedError instead of another engine.
+and an index kind the port does not serve yet (B1, I8) answers with its
+NotImplementedError instead of another engine.
+
+A local (per-partition) index is served like the JAX service serves it:
+4 partitions x 5 rows with a (pk, ck) primary key, the layout of
+tests/test_validator_filtering.py (so each partition fits one lane group
+and the kernel path's group minimum is exact).
 """
 
 import asyncio
@@ -115,10 +120,10 @@ async def test_port_serves_like_jax_service():
 @pytest.mark.parametrize(
     "md_kwargs",
     [
-        {"partitioning": DbIndexPartitioning.local(("pk",))},
+        {"quantization": Quantization.B1},
         {"quantization": Quantization.I8},
     ],
-    ids=["local", "i8"],
+    ids=["b1", "i8"],
 )
 async def test_unported_index_kinds_answer_not_implemented(md_kwargs):
     from vector_store_tpu_torch.run import serve
@@ -135,7 +140,7 @@ async def test_unported_index_kinds_answer_not_implemented(md_kwargs):
                 await asyncio.sleep(0.05)
             actor = entry.actor
             assert actor.engine is None and isinstance(actor.unsupported, NotImplementedError)
-            # a local index is reached through its partition restriction
+            # a filtered query reaches the actor as well
             restrict = {"restrictions": [{"type": "==", "lhs": "pk", "rhs": 0}], "allow_filtering": True}
             status, body = await ann(http, base, vecs[0], 1, filter=restrict)
             assert status == 500 and "not ported yet" in body and "ROADMAP" in body
@@ -143,6 +148,100 @@ async def test_unported_index_kinds_answer_not_implemented(md_kwargs):
                 assert resp.status == 500 and "ROADMAP" in await resp.text()
     finally:
         await svc.stop()
+
+
+N_PK, N_CK, LOCAL_DIMS = 4, 5, 4
+
+
+def local_vec(pk: int, ck: int) -> list[float]:
+    """Distinct directions for every (pk, ck): no cosine ties."""
+    return [float(pk + 1), float(ck + 1), 1.0, 0.0]
+
+
+def local_db() -> FakeDb:
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl", ("pk", "ck")))
+    rows = [
+        vector_row((pk, ck), local_vec(pk, ck), 100) for pk in range(N_PK) for ck in range(N_CK)
+    ]
+    md = make_vs_metadata(
+        dimensions=LOCAL_DIMS,
+        primary_key_columns=("pk", "ck"),
+        partition_key_count=1,
+        partitioning=DbIndexPartitioning.local(("pk",)),
+    )
+    db.add_index(FakeIndex(metadata=md, scan=rows))
+    return db
+
+
+def in_partition(pk, **extra):
+    return {"filter": {"restrictions": [{"type": "==", "lhs": "pk", "rhs": pk}], "allow_filtering": True}, **extra}
+
+
+async def wait_first(http, base, vector, pk, key, timeout=30.0):
+    """Until a partition-restricted query returns ``key`` first."""
+    deadline = asyncio.get_running_loop().time() + timeout
+    while True:
+        status, got = await ann(http, base, vector, 3, **in_partition(pk))
+        if status == 200 and got["primary_keys"]["pk"][:1] == [key[0]] and got["primary_keys"]["ck"][:1] == [key[1]]:
+            return got
+        if asyncio.get_running_loop().time() > deadline:
+            raise TimeoutError(f"{key} never came first: {got}")
+        await asyncio.sleep(0.05)
+
+
+async def test_local_index_serves_like_jax_service():
+    from vector_store_tpu.run import serve as jax_serve
+    from vector_store_tpu_torch.run import serve
+
+    n = N_PK * N_CK
+    rng = np.random.default_rng(8)
+    queries = rng.normal(size=(12, LOCAL_DIMS)).astype(np.float32)
+    jax_db, port_db = local_db(), local_db()
+    jax_svc, jax_base = await start(jax_serve, jax_db)
+    port_svc, base = await start(serve, port_db, device=torch.device("cpu"))
+    try:
+        async with aiohttp.ClientSession() as http:
+            await wait_count(http, jax_base, n)
+            await wait_count(http, base, n)
+            actor = port_svc.indexes.get_vs(("ks", "idx")).actor
+            assert actor.unsupported is None and actor.engine._part_rows_host is not None
+            for i, q in enumerate(queries):
+                pk, limit = i % N_PK, (3, 7)[i % 2]  # 7: more than the partition holds
+                _, want = await ann(http, jax_base, q, limit, **in_partition(pk))
+                status, got = await ann(http, base, q, limit, **in_partition(pk))
+                assert status == 200, got
+                assert got["primary_keys"] == want["primary_keys"]
+                assert set(got["primary_keys"]["pk"]) == {pk}  # partition isolation
+                assert len(got["distances"]) == min(limit, N_CK)
+                np.testing.assert_allclose(got["distances"], want["distances"], rtol=0, atol=1e-6)
+            # self-query
+            _, got = await ann(http, base, local_vec(2, 3), 2, **in_partition(2))
+            assert (got["primary_keys"]["pk"][0], got["primary_keys"]["ck"][0]) == (2, 3)
+            assert abs(got["distances"][0]) <= 1e-6
+            # an unknown partition answers an empty result
+            for b in (jax_base, base):
+                status, got = await ann(http, b, queries[0], 3, **in_partition(99))
+                assert status == 200 and got["primary_keys"] == {"pk": [], "ck": []}, got
+            # a global query on a local-only index: 400
+            status, body = await ann(http, base, queries[0], 3)
+            assert status == 400 and "Global ANN query is not supported" in body
+            # CDC: an update of (1, 2)'s vector in its own partition and an
+            # insert of (3, 9); both become the first hit at distance 0
+            upd, new = [0.2, -1.0, 3.0, 0.5], [-2.0, 0.3, 0.1, 1.0]
+            for db in (jax_db, port_db):
+                await db.db_indexes[("ks", "idx")].push_cdc(vector_row((1, 2), upd, 200))
+                await db.db_indexes[("ks", "idx")].push_cdc(vector_row((3, 9), new, 200))
+            for vec, pk, key in ((upd, 1, (1, 2)), (new, 3, (3, 9))):
+                want = await wait_first(http, jax_base, vec, pk, key)
+                got = await wait_first(http, base, vec, pk, key)
+                assert got["primary_keys"] == want["primary_keys"]
+                assert abs(got["distances"][0]) <= 1e-6
+                np.testing.assert_allclose(got["distances"], want["distances"], rtol=0, atol=1e-6)
+            await wait_count(http, base, n + 1)
+    finally:
+        await port_svc.stop()
+        await jax_svc.stop()
 
 
 async def test_service_requires_cuda_by_default():

@@ -1,7 +1,7 @@
-// Device code shared by the two rank-scan kernels (fused_scan.cu,
-// grouped_scan.cu).
+// Device code shared by the rank-scan kernels (fused_scan.cu,
+// grouped_scan.cu, partition_scan.cu).
 //
-// Both kernels compute the same thing for a group of stored rows and a set
+// Every kernel computes the same thing for a group of stored rows and a set
 // of query rows: the affine rank r = a[row] * (q . v[row]) + b[row] of every
 // (query, row) pair, folded to 128 candidates per query: candidate `lane`
 // is the row with the smallest rank among the group's rows whose offset in
@@ -9,20 +9,21 @@
 // carry b = 1e30 and so never win against a live one.
 //
 // Design (a simple, correct first kernel; no wgmma or TMA yet):
-// - a block has 128 threads, one per lane, and a tile of QT query rows,
-//   staged once in shared memory as f32 [QT][dp];
+// - a block has 128 threads, one per lane, and a tile of NQ query rows
+//   (QT = 16 by default; 1 in the partition scan, where each query reads
+//   rows of its own), staged once in shared memory as f32 [NQ][dp];
 // - the block walks the group 256 rows at a time; each tile is copied to
 //   shared memory DK dimensions at a time with coalesced 16-byte loads
 //   (f16/bf16 converted to f32 with the intrinsics), so the global reads
 //   are whole cache lines;
 // - thread `lane` then takes rows `lane` and `lane + 128` of the tile (both
 //   its lane's) from shared memory (rows padded by 4 floats: conflict-free
-//   16-byte reads) and accumulates 2 x QT dot products in f32 registers
+//   16-byte reads) and accumulates 2 x NQ dot products in f32 registers
 //   against the query tile (shared-memory broadcasts, each used for both
 //   rows). Products of f16/bf16 values are exact in f32 and F32 storage
 //   keeps full f32 precision: no TF32 anywhere;
 // - the running (min rank, row) per query stays in registers, rows in
-//   increasing order, and each thread writes its QT candidates at the end
+//   increasing order, and each thread writes its NQ candidates at the end
 //   (coalesced across lanes).
 #pragma once
 
@@ -35,14 +36,14 @@
 namespace vst {
 
 constexpr int LANES = 128;  // threads per block, candidates per group
-constexpr int QT = 16;      // query rows per block
+constexpr int QT = 16;      // query rows per block (default tile)
 constexpr int DK = 32;      // dimensions per staged row tile
 constexpr int ROW_PITCH = DK + 4;  // floats per staged row (bank-conflict pad)
 constexpr int TILE_ROWS = 2 * LANES;  // rows per staged tile: two per thread
 
-// dynamic shared memory of a block: query tile + one row tile
-inline size_t smem_bytes(int dp) {
-  return sizeof(float) * (QT * dp + TILE_ROWS * ROW_PITCH);
+// dynamic shared memory of a block: query tile of nq rows + one row tile
+inline size_t smem_bytes(int dp, int nq = QT) {
+  return sizeof(float) * (nq * dp + TILE_ROWS * ROW_PITCH);
 }
 
 enum DType : int { F32 = 0, F16 = 1, BF16 = 2 };
@@ -80,24 +81,24 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Stage `nq` query rows (nq <= QT) into shared memory as f32 [QT][dp];
+// Stage `nq` query rows (nq <= NQ) into shared memory as f32 [NQ][dp];
 // rows past nq are zero (their candidates are never written).
-template <typename T>
+template <int NQ = QT, typename T>
 __device__ void stage_queries(const T* __restrict__ q, int nq, int dp,
                               float* __restrict__ qs) {
-  for (int i = threadIdx.x; i < QT * dp; i += blockDim.x) {
+  for (int i = threadIdx.x; i < NQ * dp; i += blockDim.x) {
     const int row = i / dp;
     qs[i] = row < nq ? to_f32(q[(int64_t)row * dp + (i - row * dp)]) : 0.f;
   }
 }
 
 // Accumulate the dot products of this thread's R staged rows (R = 1 or 2)
-// with the QT staged queries over dimensions [k0, k0 + width).
-template <int R>
+// with the NQ staged queries over dimensions [k0, k0 + width).
+template <int R, int NQ>
 __device__ __forceinline__ void dot_tile(const float* __restrict__ qs,
                                         const float* __restrict__ vs, int dp,
                                         int k0, int width,
-                                        float (&acc)[2][QT]) {
+                                        float (&acc)[2][NQ]) {
   const float* row0 = vs + threadIdx.x * ROW_PITCH;
   const float* row1 = row0 + LANES * ROW_PITCH;
   for (int k = 0; k < width; k += 4) {
@@ -105,7 +106,7 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ qs,
     float4 v1;
     if (R == 2) v1 = *reinterpret_cast<const float4*>(row1 + k);
 #pragma unroll
-    for (int i = 0; i < QT; ++i) {
+    for (int i = 0; i < NQ; ++i) {
       const float4 q = *reinterpret_cast<const float4*>(qs + i * dp + k0 + k);
       // one f32 FMA chain per (row, query), dimensions in order
       acc[0][i] = fmaf(q.w, v0.w, fmaf(q.z, v0.z, fmaf(q.y, v0.y, fmaf(q.x, v0.x, acc[0][i]))));
@@ -118,25 +119,25 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ qs,
 // Scan rows [row0, row0 + nrows) (nrows a multiple of LANES) against the
 // staged queries `qs`, using `vs` [TILE_ROWS][ROW_PITCH] as the row tile;
 // returns each query's winner among this thread's rows.
-template <typename T>
+template <typename T, int NQ>
 __device__ void scan_rows(const float* __restrict__ qs, float* __restrict__ vs,
                           const T* __restrict__ vectors,
                           const float* __restrict__ a,
                           const float* __restrict__ b, int64_t row0,
-                          int nrows, int dp, float (&best)[QT],
-                          int (&best_row)[QT]) {
+                          int nrows, int dp, float (&best)[NQ],
+                          int (&best_row)[NQ]) {
   const int lane = threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < QT; ++i) {
+  for (int i = 0; i < NQ; ++i) {
     best[i] = CUDART_INF_F;
     best_row[i] = (int)(row0 + lane);
   }
   for (int r0 = 0; r0 < nrows; r0 += TILE_ROWS) {
     const int64_t tile = row0 + r0;
     const int rows = min(TILE_ROWS, nrows - r0);  // LANES or TILE_ROWS
-    float acc[2][QT];
+    float acc[2][NQ];
 #pragma unroll
-    for (int i = 0; i < QT; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int i = 0; i < NQ; ++i) acc[0][i] = acc[1][i] = 0.f;
     for (int k0 = 0; k0 < dp; k0 += DK) {
       const int width = min(DK, dp - k0);  // a multiple of 8
       const int chunks = width / 8;          // 8-element chunks per row
@@ -152,9 +153,9 @@ __device__ void scan_rows(const float* __restrict__ qs, float* __restrict__ vs,
       }
       __syncthreads();
       if (rows == TILE_ROWS) {
-        dot_tile<2>(qs, vs, dp, k0, width, acc);
+        dot_tile<2, NQ>(qs, vs, dp, k0, width, acc);
       } else {
-        dot_tile<1>(qs, vs, dp, k0, width, acc);
+        dot_tile<1, NQ>(qs, vs, dp, k0, width, acc);
       }
     }
 #pragma unroll
@@ -164,7 +165,7 @@ __device__ void scan_rows(const float* __restrict__ qs, float* __restrict__ vs,
       const float ra = a[row];
       const float rb = b[row];
 #pragma unroll
-      for (int i = 0; i < QT; ++i) {
+      for (int i = 0; i < NQ; ++i) {
         const float rank = fmaf(ra, acc[j][i], rb);
         if (rank < best[i]) {  // strict: the first (smallest) row keeps ties
           best[i] = rank;

@@ -1,12 +1,14 @@
 """Exact (brute-force) device-resident vector index.
 
-Counterpart of vector_store_tpu/engine/flat.py for global float indexes
-(F32/F16/BF16). It serves small indexes and is the IVF engine's delta
-region. Device state, slot-indexed like the reference's PrimaryId slots:
+Counterpart of vector_store_tpu/engine/flat.py for F32/F16/BF16 indexes.
+It serves small global indexes, every local (per-partition) index, and is
+the IVF engine's delta region. Device state, slot-indexed like the
+reference's PrimaryId slots:
 
 - vectors [cap, Dp]  storage dtype
 - a, b    [cap] f32  rank coefficients of the fused scan (b = INVALID_BIAS
                      for never-written or removed slots)
+- parts   [cap] i32  partition slot of each row (-1 = none)
 
 Validity, epochs and an f32 copy of every stored vector live in host
 mirrors: a search ships only [B, k] int32 winner slots back, and the host
@@ -14,10 +16,17 @@ recomputes exact f32 distances and attaches epochs (ids_postprocess; the
 reference resolves ids host-side the same way, usearch.rs:1067-1154).
 Mutations update the device tensors in place (the JAX package donated
 buffers to the same effect). Capacity grows by the reserve increment
-(1M for global indexes, usearch.rs:442-443).
+(1M for global indexes, 1k for local ones, usearch.rs:442-443).
 
-Not ported yet (ROADMAP.md, port queue): the partition directory of local
-indexes and the I8/B1 search with its bf16 rescore tier.
+Local indexes keep a partition directory: per-partition slot lists
+(``part_rows`` [P_cap, pmax], bucket order and swap-removes as in the JAX
+package) and a partition-major mirror of the rows (``part_vecs``
+[P_cap * pmax, Dp] with its own a, b) that the partition scan (kernel 3,
+ops/partition_scan.py) reads one bucket per query. A query naming a
+partition costs O(pmax) rows instead of a masked scan of the table.
+
+Not ported yet (ROADMAP.md, port queue): the I8/B1 search with its bf16
+rescore tier.
 """
 
 from __future__ import annotations
@@ -30,18 +39,41 @@ import torch
 
 from vector_store_tpu.core.types import Quantization, SpaceType
 from vector_store_tpu.utils import hotpath
-from vector_store_tpu_torch.ops.distance import prepare_queries
+from vector_store_tpu_torch.ops.distance import (
+    pairwise_distance,
+    prepare_queries,
+    query_block_distance,
+    vector_aux,
+)
 from vector_store_tpu_torch.ops.fused_scan import (
     INVALID_BIAS,
+    INVALID_CUTOFF,
+    LANES,
     block_rows_for,
     paux_coeffs,
     rank_search,
 )
+from vector_store_tpu_torch.ops.partition_scan import (
+    PLAIN_CHUNK_ELEMS,
+    partition_candidates,
+)
 from vector_store_tpu_torch.ops.quantize import padded_dim, storage_dtype
+from vector_store_tpu_torch.ops.topk import merge_min_k
 
 logger = logging.getLogger(__name__)
 
 GLOBAL_RESERVE_INCREMENT = 1_000_000
+LOCAL_RESERVE_INCREMENT = 1_000
+
+# Directory/masked crossover. On the H100 both paths grow with the batch
+# (the masked scan is a product of the batch with the whole capacity); at
+# B = 2048 a (query, row) of the masked scan costs 0.23 of one of the
+# directory's (1M rows, pmax 1024, BF16, k 10, on an H100; PERF.md), and at
+# smaller batches the masked scan's fixed cost favours the directory more.
+# So the directory serves while pmax <= PART_CROSSOVER * capacity, whatever
+# the batch; the JAX package's TPU rule (B * pmax <= 3 * capacity) read the
+# table once a batch.
+PART_CROSSOVER = 0.23
 
 
 @dataclass
@@ -139,16 +171,19 @@ def normalize_rows(x: np.ndarray) -> np.ndarray:
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-30)
 
 
-def require_global(partitions) -> None:
-    if partitions is not None and (np.asarray(partitions) >= 0).any():
-        raise NotImplementedError(
-            "local (per-partition) indexes are not ported yet (ROADMAP.md, "
-            "port queue: partition_rank_scan with local indexes)"
-        )
+def _grown(arr: np.ndarray, n: int, fill) -> np.ndarray:
+    """``arr`` extended along axis 0 to n rows of ``fill``."""
+    out = np.full((n,) + arr.shape[1:], fill, dtype=arr.dtype)
+    out[: arr.shape[0]] = arr
+    return out
 
 
 class FlatDeviceIndex:
     """Exact search over slot-addressed device tensors."""
+
+    _PART_PMAX0 = 128  # initial per-partition row capacity (pow2 ladder)
+    _PART_PMAX_CAP = 16384  # beyond this a partition ~= a full scan
+    _PART_PCAP0 = 256  # initial bucket count (the table reserves 256 partitions)
 
     def __init__(
         self,
@@ -177,10 +212,32 @@ class FlatDeviceIndex:
         self.vectors = torch.zeros((cap, self.dp), dtype=self.dtype, device=self.device)
         self.a = torch.zeros((cap,), dtype=torch.float32, device=self.device)
         self.b = torch.full((cap,), INVALID_BIAS, dtype=torch.float32, device=self.device)
+        self.parts = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
         self._live = 0
         self._valid_host = np.zeros((cap,), dtype=bool)
         self._epochs_host = np.full((cap,), -1, dtype=np.int32)
         self._vecs_host = np.zeros((cap, dimensions), dtype=np.float32)
+
+        # partition directory, made at the first partitioned upsert; turned
+        # off for good if a partition outgrows _PART_PMAX_CAP (the masked
+        # scan then serves the index)
+        self._part_bucket: dict[int, int] = {}  # partition slot -> bucket
+        self._part_rows_host: np.ndarray | None = None  # [P_cap, pmax] i32
+        self._part_count: np.ndarray | None = None  # [P_cap] i32
+        self._slot_part = np.full((cap,), -1, dtype=np.int64)
+        self._slot_pos = np.full((cap,), -1, dtype=np.int32)
+        self._part_overflow = False
+        self.part_rows: torch.Tensor | None = None  # device copy of the lists
+        # partition-major mirror read by the partition scan, kept in sync
+        # from the flat tensors: a full rebuild when P_cap or pmax grows,
+        # whole buckets after swap-removes, single positions for appends
+        # and in-place vector updates
+        self.part_vecs: torch.Tensor | None = None  # [P_cap * pmax, Dp]
+        self.part_a: torch.Tensor | None = None  # [P_cap * pmax] f32
+        self.part_b: torch.Tensor | None = None  # [P_cap * pmax] f32
+        self._part_pending: list[tuple[np.ndarray, np.ndarray]] = []  # (pos, slot)
+        self._part_refresh: set[int] = set()  # buckets to re-derive
+        self._part_rebuild = False
 
     # -- capacity ------------------------------------------------------------
 
@@ -195,11 +252,24 @@ class FlatDeviceIndex:
 
     @property
     def device_bytes(self) -> int:
-        return self.capacity * (self.vectors.element_size() * self.dp + 8)
+        """Device footprint: the slot tensors plus, for a local index, the
+        directory and its partition-major mirror (a second copy of the
+        rows)."""
+        total = self.capacity * (self.vectors.element_size() * self.dp + 12)
+        if self.part_rows is not None:
+            total += 4 * self.part_rows.numel()
+        if self.part_vecs is not None:
+            total += self.part_vecs.element_size() * self.part_vecs.numel()
+            total += 8 * self.part_a.numel()
+        return total
 
     @property
     def host_bytes(self) -> int:
-        return self._valid_host.nbytes + self._epochs_host.nbytes + self._vecs_host.nbytes
+        total = self._valid_host.nbytes + self._epochs_host.nbytes + self._vecs_host.nbytes
+        total += self._slot_part.nbytes + self._slot_pos.nbytes
+        if self._part_rows_host is not None:
+            total += self._part_rows_host.nbytes
+        return total
 
     def _round_cap(self, n: int) -> int:
         return -(-n // self.block_rows) * self.block_rows
@@ -217,13 +287,12 @@ class FlatDeviceIndex:
         )
         self.a = torch.cat([self.a, self.a.new_zeros((grow,))])
         self.b = torch.cat([self.b, self.b.new_full((grow,), INVALID_BIAS)])
-        self._valid_host = np.concatenate([self._valid_host, np.zeros(grow, bool)])
-        self._epochs_host = np.concatenate(
-            [self._epochs_host, np.full(grow, -1, np.int32)]
-        )
-        self._vecs_host = np.concatenate(
-            [self._vecs_host, np.zeros((grow, self.dimensions), np.float32)]
-        )
+        self.parts = torch.cat([self.parts, self.parts.new_full((grow,), -1)])
+        self._valid_host = _grown(self._valid_host, new, False)
+        self._epochs_host = _grown(self._epochs_host, new, -1)
+        self._vecs_host = _grown(self._vecs_host, new, 0.0)
+        self._slot_part = _grown(self._slot_part, new, -1)
+        self._slot_pos = _grown(self._slot_pos, new, -1)
 
     # -- mutation --------------------------------------------------------------
 
@@ -243,27 +312,34 @@ class FlatDeviceIndex:
         slots: np.ndarray,
         epochs: np.ndarray,
         vectors: np.ndarray,  # [n, D] f32
-        partitions: np.ndarray | None = None,
+        partitions: np.ndarray | None = None,  # [n] partition slots (-1 none)
     ) -> None:
-        require_global(partitions)
         slots = np.asarray(slots, dtype=np.int64)
         if slots.size == 0:
             return
         epochs = np.asarray(epochs, dtype=np.int32)
         vectors = np.asarray(vectors, dtype=np.float32)
+        parts = (
+            np.full((slots.size,), -1, dtype=np.int64)
+            if partitions is None
+            else np.asarray(partitions, dtype=np.int64)
+        )
         if np.unique(slots).size != slots.size:
             # LWW within the batch: keep each slot's LAST occurrence
             rev_first = np.unique(slots[::-1], return_index=True)[1]
             keep = np.sort(slots.size - 1 - rev_first)
-            slots, epochs, vectors = slots[keep], epochs[keep], vectors[keep]
+            slots, epochs, vectors, parts = slots[keep], epochs[keep], vectors[keep], parts[keep]
         self.reserve(int(slots.max()))
+        was_valid = self._valid_host[slots]
         if self.space_type is SpaceType.COSINE:
             vectors = normalize_rows(vectors)
-        self._store(
-            torch.from_numpy(slots).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(vectors)).to(self.device),
-        )
-        self._live += int((~self._valid_host[slots]).sum())
+        slots_dev = torch.from_numpy(slots).to(self.device)
+        self._store(slots_dev, torch.from_numpy(np.ascontiguousarray(vectors)).to(self.device))
+        self.parts[slots_dev] = torch.from_numpy(parts.astype(np.int32)).to(self.device)
+        self._live += int((~was_valid).sum())
+        if (parts >= 0).any() or self._part_rows_host is not None:
+            # after the device writes: the mirror copies from the flat tensors
+            self._part_upsert(slots, parts, was_valid)
         self._valid_host[slots] = True
         self._epochs_host[slots] = epochs
         self._vecs_host[slots] = vectors
@@ -274,6 +350,7 @@ class FlatDeviceIndex:
         hi: int,
         rows_dev: torch.Tensor,  # [hi-lo, D] f32 on this index's device
         rows_host: np.ndarray,  # [hi-lo, D] f32 host twin of the same rows
+        partitions: np.ndarray | None = None,  # [hi-lo] partition slots
         epoch: int = 0,
         epochs: np.ndarray | None = None,  # [hi-lo] i32 per row (wins over epoch)
     ) -> None:
@@ -295,6 +372,11 @@ class FlatDeviceIndex:
             rows = rows / torch.clamp(rows.norm(dim=-1, keepdim=True), min=1e-30)
             rh = normalize_rows(rh)
         self._store(slice(lo, hi), rows)
+        if partitions is not None:
+            parts = np.asarray(partitions, dtype=np.int64)
+            self.parts[lo:hi] = torch.from_numpy(parts.astype(np.int32)).to(self.device)
+            # fresh slots: plain appends to the directory
+            self._part_upsert(np.arange(lo, hi, dtype=np.int64), parts, np.zeros(n, bool))
         self._valid_host[lo:hi] = True
         self._epochs_host[lo:hi] = epoch if epochs is None else epochs
         self._vecs_host[lo:hi] = rh
@@ -305,9 +387,243 @@ class FlatDeviceIndex:
         slots = np.unique(slots[slots < self.capacity])  # dupes would
         if slots.size == 0:  # double-decrement the live count
             return
+        was_valid = self._valid_host[slots]
         self.b[torch.from_numpy(slots).to(self.device)] = INVALID_BIAS
-        self._live -= int(self._valid_host[slots].sum())
+        self._live -= int(was_valid.sum())
         self._valid_host[slots] = False
+        if self._part_rows_host is not None:
+            dirty: set[int] = set()
+            for slot, wv in zip(slots.tolist(), was_valid.tolist()):
+                if wv and self._slot_part[slot] >= 0:
+                    self._part_remove_one(slot, int(self._slot_part[slot]), dirty)
+                    self._slot_part[slot] = -1
+            self._flush_part_dirty(dirty)
+
+    # -- partition directory ---------------------------------------------------
+
+    def partition_count(self, part_slot: int) -> int:
+        """Live rows in one partition (O(1) from the directory; the serving
+        actor stops its k-escalation once a whole partition was seen)."""
+        if self._part_count is not None:
+            b = self._part_bucket.get(int(part_slot))
+            return int(self._part_count[b]) if b is not None else 0
+        valid = self._valid_host[: self._slot_part.shape[0]]
+        return int(((self._slot_part == int(part_slot)) & valid).sum())
+
+    def _part_upsert(self, slots: np.ndarray, parts: np.ndarray, was_valid: np.ndarray) -> None:
+        old_parts = self._slot_part[slots].copy()
+        self._slot_part[slots] = parts  # kept current even after overflow
+        if self._part_overflow:
+            return
+        dirty: set[int] = set()
+        # pure adds (the ingest shape: every row new) append per partition,
+        # vectorized; moves and removals go row by row
+        is_add = (~was_valid) & (parts >= 0)
+        slow = ~is_add
+        if is_add.any():
+            a_slots, a_parts = slots[is_add], parts[is_add]
+            order = np.argsort(a_parts, kind="stable")
+            sp, ss = a_parts[order], a_slots[order]
+            uniq, starts, counts = np.unique(sp, return_index=True, return_counts=True)
+            for p, st, c in zip(uniq.tolist(), starts.tolist(), counts.tolist()):
+                b = self._part_bucket.get(p)
+                if b is None:
+                    b = self._part_new_bucket(p)
+                base = int(self._part_count[b])
+                while base + c > self._part_rows_host.shape[1]:
+                    if not self._part_grow_pmax():
+                        return  # overflowed: directory disabled
+                pmax = self._part_rows_host.shape[1]
+                seg = ss[st : st + c]
+                self._part_rows_host[b, base : base + c] = seg
+                self._slot_pos[seg] = np.arange(base, base + c, dtype=np.int32)
+                self._part_count[b] = base + c
+                self._part_pending.append((np.arange(b * pmax + base, b * pmax + base + c), seg))
+                dirty.add(b)
+        for slot, p, old, wv in zip(
+            slots[slow].tolist(),
+            parts[slow].tolist(),
+            old_parts[slow].tolist(),
+            was_valid[slow].tolist(),
+        ):
+            if wv and old == p:
+                if p >= 0:
+                    # a new vector in the same partition: the directory
+                    # keeps its position, the mirror takes the new row (the
+                    # JAX package skips this and serves the old vector)
+                    pos = self._part_bucket[p] * self._part_rows_host.shape[1]
+                    pos += int(self._slot_pos[slot])
+                    self._part_pending.append((np.array([pos]), np.array([slot])))
+                continue
+            if wv and old >= 0:
+                self._part_remove_one(slot, int(old), dirty)
+            if p >= 0:
+                self._part_add_one(slot, int(p), dirty)
+                if self._part_overflow:
+                    return
+        self._flush_part_dirty(dirty)
+
+    def _part_add_one(self, slot: int, p: int, dirty: set[int]) -> None:
+        b = self._part_bucket.get(p)
+        if b is None:
+            b = self._part_new_bucket(p)
+        c = int(self._part_count[b])
+        if c >= self._part_rows_host.shape[1]:
+            if not self._part_grow_pmax():
+                return  # overflowed: directory disabled
+        pmax = self._part_rows_host.shape[1]
+        self._part_rows_host[b, c] = slot
+        self._slot_pos[slot] = c
+        self._part_count[b] = c + 1
+        self._part_pending.append((np.array([b * pmax + c]), np.array([slot])))
+        dirty.add(b)
+
+    def _part_remove_one(self, slot: int, p: int, dirty: set[int]) -> None:
+        """Swap-remove: the bucket's last row takes the removed row's
+        position."""
+        b = self._part_bucket.get(p)
+        if b is None:
+            return
+        pos = int(self._slot_pos[slot])
+        c = int(self._part_count[b]) - 1
+        if pos < 0 or c < 0:
+            return
+        last = int(self._part_rows_host[b, c])
+        self._part_rows_host[b, pos] = last
+        self._slot_pos[last] = pos
+        self._part_rows_host[b, c] = -1
+        self._part_count[b] = c
+        self._slot_pos[slot] = -1
+        self._part_refresh.add(b)  # swap-moves re-derive the whole bucket
+        dirty.add(b)
+
+    def _part_new_bucket(self, p: int) -> int:
+        if self._part_rows_host is None:
+            self._part_rows_host = np.full(
+                (self._PART_PCAP0, self._PART_PMAX0), -1, dtype=np.int32
+            )
+            self._part_count = np.zeros((self._PART_PCAP0,), dtype=np.int32)
+        b = len(self._part_bucket)
+        if b >= self._part_rows_host.shape[0]:
+            pcap = self._part_rows_host.shape[0] * 2
+            self._part_rows_host = _grown(self._part_rows_host, pcap, -1)
+            self._part_count = _grown(self._part_count, pcap, 0)
+        self._part_bucket[p] = b
+        return b
+
+    def _part_grow_pmax(self) -> bool:
+        """Double the per-partition capacity; False (and the directory off)
+        past the cap: the masked scan serves such indexes."""
+        pmax = self._part_rows_host.shape[1] * 2
+        if pmax > self._PART_PMAX_CAP:
+            logger.warning(
+                "partition exceeded %d rows; partition-directory search "
+                "disabled for this index (the masked scan serves it)",
+                self._PART_PMAX_CAP,
+            )
+            self._part_overflow = True
+            self._part_rows_host = self._part_count = None
+            self.part_rows = self.part_vecs = self.part_a = self.part_b = None
+            self._part_pending.clear()
+            self._part_refresh.clear()
+            return False
+        grown = np.full((self._part_rows_host.shape[0], pmax), -1, dtype=np.int32)
+        grown[:, : self._part_rows_host.shape[1]] = self._part_rows_host
+        self._part_rows_host = grown
+        return True
+
+    def _flush_part_dirty(self, dirty: set[int]) -> None:
+        """Copy the changed buckets' slot lists to the device (all of them
+        after a geometry change), then bring the mirror up to date."""
+        if self._part_rows_host is None:
+            return
+        if self.part_rows is None or tuple(self.part_rows.shape) != self._part_rows_host.shape:
+            self.part_rows = torch.tensor(self._part_rows_host, device=self.device)
+        elif dirty:
+            idx = np.fromiter(dirty, np.int64, len(dirty))
+            self.part_rows[torch.from_numpy(idx).to(self.device)] = torch.from_numpy(
+                self._part_rows_host[idx]
+            ).to(self.device)
+        self._part_device_sync()
+
+    def _part_device_sync(self) -> None:
+        """Bring the partition-major mirror up to date, with in-place writes
+        except for the full rebuild. Every vector comes from the device's
+        flat tensors (no second upload)."""
+        pmax = self._part_rows_host.shape[1]
+        npos = self._part_rows_host.shape[0] * pmax
+        if self.part_vecs is None or self.part_vecs.shape[0] != npos or self._part_rebuild:
+            rows = self.part_rows.view(-1)
+            safe = torch.clamp(rows, min=0).long()
+            self.part_vecs = self.part_a = self.part_b = None  # free before the copy
+            self.part_vecs = self.vectors[safe]
+            self.part_a = self.a[safe]
+            self.part_b = torch.where(rows >= 0, self.b[safe], INVALID_BIAS)
+            self._part_rebuild = False
+            self._part_pending.clear()
+            self._part_refresh.clear()
+            return
+        if self._part_refresh:
+            idx = torch.tensor(sorted(self._part_refresh), device=self.device)
+            self._part_refresh.clear()
+            rows = self.part_rows[idx].view(-1)
+            safe = torch.clamp(rows, min=0).long()
+            flat = (idx[:, None] * pmax + torch.arange(pmax, device=self.device)).view(-1)
+            self.part_vecs[flat] = self.vectors[safe]
+            self.part_a[flat] = self.a[safe]
+            self.part_b[flat] = torch.where(rows >= 0, self.b[safe], INVALID_BIAS)
+        if self._part_pending:
+            pos = np.concatenate([p for p, _ in self._part_pending])
+            slots = np.concatenate([s for _, s in self._part_pending])
+            self._part_pending.clear()
+            # a later swap-remove of the same batch may have moved the row;
+            # its bucket's refresh already placed it
+            keep = self._part_rows_host.reshape(-1)[pos] == slots
+            pos_t = torch.from_numpy(pos[keep]).to(self.device)
+            slots_t = torch.from_numpy(slots[keep].astype(np.int64)).to(self.device)
+            self.part_vecs[pos_t] = self.vectors[slots_t]
+            self.part_a[pos_t] = self.a[slots_t]
+            self.part_b[pos_t] = self.b[slots_t]
+
+    def load_state(self, state: dict) -> None:
+        """Take over the state of a JAX FlatDeviceIndex, given as
+        ``np.asarray`` of its attributes ``vectors``, ``paux`` (rows 0-1 =
+        a, b), ``valid``, ``epochs`` and ``_vecs_host``, and its partition
+        directory ``_part_bucket`` (a dict), ``_part_rows_host``,
+        ``_part_count`` (both None without a directory), ``_slot_part``,
+        ``_slot_pos`` and ``_part_overflow``. Capacity is rounded up to this
+        engine's scan block; rows are cut to its padded row length (the JAX
+        package pads to 128)."""
+        dev = self.device
+        valid = np.asarray(state["valid"], dtype=bool)
+        n = valid.shape[0]
+        cap = self._round_cap(n)
+        paux = np.asarray(state["paux"], dtype=np.float32)
+        vecs = np.asarray(state["vectors"]).astype(np.float32)[:, : self.dp]
+        self.vectors = torch.zeros((cap, self.dp), dtype=self.dtype, device=dev)
+        self.vectors[:n] = torch.from_numpy(np.ascontiguousarray(vecs)).to(self.dtype).to(dev)
+        self.a = torch.zeros((cap,), dtype=torch.float32, device=dev)
+        self.a[:n] = torch.from_numpy(paux[0].copy()).to(dev)
+        self.b = torch.full((cap,), INVALID_BIAS, dtype=torch.float32, device=dev)
+        self.b[:n] = torch.from_numpy(np.where(valid, paux[1], INVALID_BIAS)).to(dev)
+        self._valid_host = _grown(valid, cap, False)
+        self._epochs_host = _grown(np.asarray(state["epochs"], dtype=np.int32), cap, -1)
+        self._vecs_host = _grown(np.asarray(state["_vecs_host"], dtype=np.float32), cap, 0.0)
+        self._live = int(valid.sum())
+        self._slot_part = _grown(np.asarray(state["_slot_part"], dtype=np.int64), cap, -1)
+        self._slot_pos = _grown(np.asarray(state["_slot_pos"], dtype=np.int32), cap, -1)
+        self.parts = torch.tensor(self._slot_part.astype(np.int32), device=dev)
+        self._part_bucket = {int(p): int(b) for p, b in state["_part_bucket"].items()}
+        rows = state["_part_rows_host"]
+        self._part_rows_host = None if rows is None else np.array(rows, dtype=np.int32)
+        count = state["_part_count"]
+        self._part_count = None if count is None else np.array(count, dtype=np.int32)
+        self._part_overflow = bool(state["_part_overflow"])
+        self.part_rows = self.part_vecs = self.part_a = self.part_b = None
+        self._part_pending.clear()
+        self._part_refresh.clear()
+        self._part_rebuild = False
+        self._flush_part_dirty(set())
 
     # -- search ----------------------------------------------------------------
 
@@ -326,25 +642,113 @@ class FlatDeviceIndex:
         self,
         queries: np.ndarray,
         k: int,
-        partitions: np.ndarray | None = None,
+        partitions: np.ndarray | None = None,  # [B] partition slots (-1 = all)
         raw: bool = False,
         queries_dev: torch.Tensor | None = None,
     ) -> PendingSearch:
         """Launch the scan and return a handle without waiting. raw=True
         keeps the rank values (kind "rank") for the IVF engine's region
         merge; queries_dev is an already device-resident [B, Dp] query
-        tensor (the IVF engine shares one upload across its two regions)."""
-        require_global(partitions)
+        tensor (the IVF engine shares one upload across its two regions).
+        With ``partitions`` each query sees only its partition's rows."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         if self.space_type is SpaceType.COSINE:
             queries = normalize_rows(queries)
         qs = self.query_tensor(queries) if queries_dev is None else queries_dev
+        b_real = queries.shape[0]
+        if partitions is not None:
+            if raw:
+                raise ValueError("a partitioned search has no raw form")
+            ids = self._partitioned_ids(qs, np.asarray(partitions, dtype=np.int64), k)
+            return PendingSearch(packed=ids, b_real=b_real, k=k, q_f32=queries)
         rank, rows = rank_search(
             self.vectors, self.a, self.b, qs, k=k, block_rows=self.block_rows
         )
         if raw:
-            return PendingSearch(packed=rank, rows=rows, b_real=queries.shape[0], k=k)
-        return PendingSearch(packed=rows, b_real=queries.shape[0], k=k, q_f32=queries)
+            return PendingSearch(packed=rank, rows=rows, b_real=b_real, k=k)
+        return PendingSearch(packed=rows, b_real=b_real, k=k, q_f32=queries)
+
+    def _part_directory_wins(self) -> bool:
+        """Does the directory (pmax rows a query) beat the masked scan (the
+        whole capacity a query) at the H100's measured cost ratio?"""
+        return self._part_rows_host.shape[1] <= PART_CROSSOVER * self.capacity
+
+    def _partitioned_ids(self, qs: torch.Tensor, psel: np.ndarray, k: int) -> torch.Tensor:
+        """[B, k] i32 winner slots of a partitioned search (-1 empty).
+
+        Every query names a partition and the directory wins the crossover:
+        k <= 128 runs the partition scan kernel, larger k (the actor's
+        oversample steps) an exact gather of the buckets. Otherwise a masked
+        scan of the whole capacity, where psel -1 means every partition."""
+        nq = qs.shape[0]
+        if (
+            self._part_rows_host is not None
+            and bool((psel >= 0).all())
+            and self._part_directory_wins()
+        ):
+            bsel = np.fromiter(
+                (self._part_bucket.get(int(p), -1) for p in psel), np.int32, nq
+            )
+            bsel_t = torch.from_numpy(bsel).to(self.device)
+            pmax = self._part_rows_host.shape[1]
+            if k <= LANES:
+                return partition_candidates(
+                    self.part_vecs, self.part_a, self.part_b, self.part_rows, qs,
+                    bsel_t, k=k, pmax=pmax,
+                )
+            return self._part_gather(qs, bsel_t, k)
+        return self._masked_scan(qs, torch.from_numpy(psel.astype(np.int32)).to(self.device), k)
+
+    def _part_gather(self, qs: torch.Tensor, bsel: torch.Tensor, k: int) -> torch.Tensor:
+        """Exact directory search (the JAX package's _part_search): gather
+        each query's bucket from the flat tensors, rank by exact storage
+        distance, top-k; a chunk of queries at a time."""
+        nq, dp = qs.shape
+        pmax = self.part_rows.shape[1]
+        rows = torch.where(
+            bsel[:, None] >= 0, self.part_rows[torch.clamp(bsel, min=0).long()], -1
+        )  # [B, pmax]
+        q_aux = vector_aux(qs, self.space_type, self.quantization)
+        kk = min(k, pmax)
+        out = torch.full((nq, k), -1, dtype=torch.int32, device=self.device)
+        step = max(1, PLAIN_CHUNK_ELEMS // (pmax * dp))
+        for lo in range(0, nq, step):
+            r = rows[lo : lo + step]
+            safe = torch.clamp(r, min=0).long()
+            vb = self.vectors[safe]  # [c, pmax, Dp]
+            d = query_block_distance(
+                qs[lo : lo + step], vb, self.space_type, self.quantization,
+                q_aux[lo : lo + step], vector_aux(vb, self.space_type, self.quantization),
+            )
+            d = torch.where((r >= 0) & (self.b[safe] < INVALID_CUTOFF), d, float("inf"))
+            bd, sel = torch.topk(d, kk, dim=1, largest=False, sorted=True)
+            out[lo : lo + step, :kk] = torch.where(
+                torch.isfinite(bd), torch.gather(r, 1, sel), -1
+            )
+        return out
+
+    def _masked_scan(self, qs: torch.Tensor, psel: torch.Tensor, k: int) -> torch.Tensor:
+        """Exact scan of the whole capacity with a per-query partition mask
+        (the JAX package's _flat_search with use_parts), block by block:
+        [B, block_rows] distances per step and a running top-k."""
+        nq = qs.shape[0]
+        q_aux = vector_aux(qs, self.space_type, self.quantization)
+        best_d = torch.full((nq, k), float("inf"), device=self.device)
+        best_i = torch.full((nq, k), -1, dtype=torch.int32, device=self.device)
+        for lo in range(0, self.capacity, self.block_rows):
+            hi = lo + self.block_rows
+            vb = self.vectors[lo:hi]
+            d = pairwise_distance(
+                qs, vb, self.space_type, self.quantization, q_aux,
+                vector_aux(vb, self.space_type, self.quantization),
+            )
+            keep = (self.b[lo:hi] < INVALID_CUTOFF)[None, :] & (
+                (psel[:, None] < 0) | (self.parts[lo:hi][None, :] == psel[:, None])
+            )
+            d = torch.where(keep, d, float("inf"))
+            bd, bi = torch.topk(d, min(k, vb.shape[0]), dim=1, largest=False)
+            best_d, best_i = merge_min_k(best_d, best_i, bd, (bi + lo).to(torch.int32))
+        return torch.where(torch.isfinite(best_d), best_i, -1)
 
     @hotpath.measure
     def search_collect(self, pending: PendingSearch) -> list[SearchResult]:

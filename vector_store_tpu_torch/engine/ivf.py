@@ -50,7 +50,6 @@ from vector_store_tpu_torch.engine.flat import (
     ids_postprocess,
     normalize_rows,
     pull_packed,
-    require_global,
 )
 from vector_store_tpu_torch.ops.fused_scan import (
     INVALID_BIAS,
@@ -81,6 +80,18 @@ SUPPORTED_SPACE = (SpaceType.EUCLIDEAN, SpaceType.COSINE, SpaceType.DOT_PRODUCT)
 
 def ivf_supports(space: SpaceType, quant: Quantization) -> bool:
     return space in SUPPORTED_SPACE and quant in SUPPORTED_QUANT
+
+
+def require_global(partitions) -> None:
+    """Local (per-partition) indexes are served by the flat engine's
+    partition directory, as in the JAX package; this engine takes global
+    rows and queries only."""
+    if partitions is not None and (np.asarray(partitions) >= 0).any():
+        raise NotImplementedError(
+            "the IVF engine has no per-partition search: local indexes are "
+            "served by the flat engine's partition directory (ROADMAP.md, "
+            "queue 1: local indexes)"
+        )
 
 
 def _build_main_arrays(

@@ -34,7 +34,11 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # entry point -> (pointer arguments, int arguments incl. the device index);
 # the stream comes last
-_ENTRY_POINTS = {"vst_fused_scan": (6, 6), "vst_grouped_scan": (6, 6)}
+_ENTRY_POINTS = {
+    "vst_fused_scan": (6, 6),
+    "vst_grouped_scan": (6, 6),
+    "vst_partition_scan": (7, 6),
+}
 
 _lock = threading.Lock()
 # guards the wrappers' launch counts: searches launch from several

@@ -19,8 +19,11 @@ per kernel launch, so the actor's core is a micro-batching loop:
 - adds are dropped when the memory governor says Cannot (usearch.rs:1156).
 
 Engine choice: global F32/F16/BF16 indexes get the IVF engine ("auto" or
-"ivf") or the flat engine ("flat"). Every other kind raises
-NotImplementedError naming its ROADMAP.md entry; no other engine stands in.
+"ivf") or the flat engine ("flat"); local (per-partition) F32/F16/BF16
+indexes always get the flat engine, whose partition directory serves a
+query naming its partition (the JAX package's choice). Every other kind
+raises NotImplementedError naming its ROADMAP.md entry; no other engine
+stands in.
 """
 
 from __future__ import annotations
@@ -51,7 +54,12 @@ from vector_store_tpu.table import (
     Table,
 )
 from vector_store_tpu.utils import hotpath
-from vector_store_tpu_torch.engine.flat import FlatDeviceIndex, SearchResult
+from vector_store_tpu_torch.engine.flat import (
+    GLOBAL_RESERVE_INCREMENT,
+    LOCAL_RESERVE_INCREMENT,
+    FlatDeviceIndex,
+    SearchResult,
+)
 from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex, ivf_supports
 
 logger = logging.getLogger(__name__)
@@ -78,11 +86,6 @@ def make_engine(
     """The device engine for one index, or NotImplementedError for what the
     port does not serve yet."""
     vs = metadata.vs_options
-    if not metadata.partitioning.is_global:
-        raise NotImplementedError(
-            "local (per-partition) vector indexes are not ported yet "
-            "(ROADMAP.md, port queue: partition_rank_scan with local indexes)"
-        )
     if not ivf_supports(vs.space_type, vs.quantization):
         raise NotImplementedError(
             f"{vs.quantization.name} storage / {vs.space_type.name} distance is "
@@ -94,12 +97,14 @@ def make_engine(
             "graph engine, sharded engines, simulator/opensearch)"
         )
     rescoring = vs.rescoring is not False
-    if engine_kind == "flat":
+    is_local = not metadata.partitioning.is_global
+    if engine_kind == "flat" or is_local:
         return FlatDeviceIndex(
             int(vs.dimensions),
             space_type=vs.space_type,
             quantization=vs.quantization,
             device=device,
+            reserve_increment=LOCAL_RESERVE_INCREMENT if is_local else GLOBAL_RESERVE_INCREMENT,
             rescoring=rescoring,
         )
     # expansion_search plays the nprobe role (reference ef_search 64)
@@ -121,6 +126,7 @@ class _SearchRequest:
     restrictions: Optional[list[Restriction]]
     future: asyncio.Future
     oversample: int = 1  # grows on the post-filter ladder
+    partition: Optional[PartitionId] = None  # local indexes: the query's partition
 
 
 class VsIndexActor:
@@ -144,6 +150,7 @@ class VsIndexActor:
         self.dimensions = int(vs.dimensions)
         self.space_type = vs.space_type
         self.quantization = vs.quantization
+        self.is_local = not metadata.partitioning.is_global
         # an index this port cannot serve stays registered and answers every
         # request with the NotImplementedError (the routes report it)
         self.unsupported: NotImplementedError | None = None
@@ -197,7 +204,15 @@ class VsIndexActor:
     async def filtered_ann(
         self, vector: list[float], restrictions: list[Restriction], limit: int
     ) -> list[tuple[PrimaryKey, Distance]]:
-        return await self._submit(vector, limit, restrictions)
+        partition = None
+        if self.is_local and self.unsupported is None:
+            routed = self.table.partition_id(self.metadata.key, restrictions)
+            if routed is None:
+                # unknown partition -> empty result (the reference resolves
+                # the partition from Eq restrictions, usearch.rs:781-864)
+                return []
+            partition, restrictions = routed
+        return await self._submit(vector, limit, restrictions, partition)
 
     async def count(self) -> int:
         if self.unsupported is not None:
@@ -219,7 +234,7 @@ class VsIndexActor:
 
     # -- scheduling -------------------------------------------------------------
 
-    async def _submit(self, vector, limit, restrictions):
+    async def _submit(self, vector, limit, restrictions, partition=None):
         if self.unsupported is not None:
             raise self.unsupported
         v = np.asarray(vector, dtype=np.float32)
@@ -229,7 +244,9 @@ class VsIndexActor:
                 f"expected {self.dimensions}"
             )
         fut = asyncio.get_running_loop().create_future()
-        await self._search_queue.put(_SearchRequest(v, limit, restrictions or None, fut))
+        await self._search_queue.put(
+            _SearchRequest(v, limit, restrictions or None, fut, partition=partition)
+        )
         return await fut
 
     async def _run(self) -> None:
@@ -428,7 +445,7 @@ class VsIndexActor:
             k = max(r.limit * r.oversample for r in batch)
             k = min(k, max(self.engine.size, 1))
             queries = np.stack([r.vector for r in batch])
-            out.append((batch, self.engine.search_begin(queries, k)))
+            out.append((batch, self.engine.search_begin(queries, k, self._partitions(batch))))
         return out
 
     # executed in a worker thread
@@ -447,7 +464,7 @@ class VsIndexActor:
             for req, res in zip(batch, results):
                 loop = loop or req.future.get_loop()
                 resolved = self._resolve(req, res)
-                if len(resolved) >= req.limit or self._exhausted(res, k_used):
+                if len(resolved) >= req.limit or self._exhausted(req, res, k_used):
                     finished.append((req, resolved[: req.limit]))
                 elif req.oversample >= OVERSAMPLE_STEPS[-1]:
                     terminal.append(req)
@@ -477,21 +494,46 @@ class VsIndexActor:
         if self.internals is not None:
             self.internals.increment(f"vs_index_{name}", amount)
 
-    def _exhausted(self, res, k_used: int) -> bool:
-        """Has the whole index been considered?"""
-        return res.slots.size >= self.engine.size or k_used >= self.engine.size
+    def _partitions(self, batch: list[_SearchRequest]) -> np.ndarray | None:
+        """Per-query partition slots of a local index's batch (-1 none)."""
+        if not self.is_local:
+            return None
+        return np.asarray(
+            [r.partition.slot if r.partition else -1 for r in batch], dtype=np.int32
+        )
+
+    def _exhausted(self, req: _SearchRequest, res, k_used: int) -> bool:
+        """Has the whole candidate population been considered? For a
+        partitioned (local) query that is the partition, whose size the
+        flat engine's directory reads in O(1)."""
+        if res.slots.size >= self.engine.size or k_used >= self.engine.size:
+            return True
+        if req.partition is not None:
+            return k_used >= max(self.engine.partition_count(req.partition.slot), 1)
+        return False
 
     # executed in a worker thread
     def _finish_last(self, req: _SearchRequest) -> None:
-        """Oversample steps exhausted: rank the whole index exactly on the
-        host mirror (the device path caps candidates at nprobe*128 per
-        query), then post-filter in bounded chunks."""
+        """Oversample steps exhausted. The IVF engine ranks the whole index
+        exactly on the host mirror (its device path caps candidates at
+        nprobe*128 per query), then post-filters in bounded chunks; the flat
+        engine searches its candidate population (a local query's partition)
+        with a growing k until enough rows pass."""
         self._exact_fallbacks += 1
         self._count("exact_host_fallbacks")
-        if hasattr(self.engine, "search_exact_host"):
-            res = self.engine.search_exact_host(req.vector, self.engine.size)
-        else:
-            res = self.engine.search(req.vector[None, :], max(self.engine.size, 1))[0]
+        if not hasattr(self.engine, "search_exact_host"):
+            size = max(self.engine.size, 1)
+            if req.partition is not None:
+                size = max(min(size, self.engine.partition_count(req.partition.slot)), 1)
+            k = min(size, req.limit * OVERSAMPLE_STEPS[-1] * 4)
+            while True:
+                res = self.engine.search(req.vector[None, :], k, self._partitions([req]))[0]
+                resolved = self._resolve(req, res)
+                if len(resolved) >= req.limit or k >= size or res.slots.size >= size:
+                    self._finish(req, resolved[: req.limit])
+                    return
+                k = min(size, k * 4)
+        res = self.engine.search_exact_host(req.vector, self.engine.size)
         out: list = []
         step = max(req.limit * OVERSAMPLE_STEPS[-1], 1024)
         for lo in range(0, res.slots.size, step):
@@ -510,7 +552,7 @@ class VsIndexActor:
         """Slot/epoch hits -> (PrimaryKey, Distance), dropping stale epochs
         and rows failing the restrictions (usearch.rs:1067-1154)."""
         out: list[tuple[PrimaryKey, Distance]] = []
-        pid = PartitionId.global_for(self.table.index_id(self.metadata.key))
+        pid = req.partition or PartitionId.global_for(self.table.index_id(self.metadata.key))
         for slot, epoch, dist in zip(res.slots, res.epochs, res.distances):
             primary_id = PrimaryId.new(int(slot), int(epoch))
             if req.restrictions and not all(
@@ -544,6 +586,7 @@ class VsIndexActor:
         add_slots: list[int] = []
         add_epochs: list[int] = []
         add_vecs: list[np.ndarray] = []
+        add_parts: list[int] = []  # partition slot per add (read for local indexes)
         remove_slots: list[int] = []
         seen_add: dict[int, int] = {}  # slot -> position in add arrays
         rm_before_add: set[int] = set()  # slots whose old value must go away
@@ -572,15 +615,18 @@ class VsIndexActor:
                     )
                     continue
                 slot = op.primary_id.slot
+                part = op.partition_id.slot
                 pos = seen_add.get(slot)
                 if pos is not None:  # LWW within the batch
                     add_epochs[pos] = op.primary_id.epoch
                     add_vecs[pos] = vec
+                    add_parts[pos] = part
                 else:
                     seen_add[slot] = len(add_slots)
                     add_slots.append(slot)
                     add_epochs.append(op.primary_id.epoch)
                     add_vecs.append(vec)
+                    add_parts.append(part)
             elif isinstance(op, RemoveValue):
                 slot = op.primary_id.slot
                 pos = seen_add.pop(slot, None)
@@ -592,7 +638,7 @@ class VsIndexActor:
                 # may be dropped (memory gate, wrong dims): remember the slot
                 rm_before_add.add(op.primary_id.slot)
             elif isinstance(op, RemovePartition):
-                continue  # global indexes only
+                continue  # an emptied partition simply holds no rows
             elif isinstance(op, AddDocument):
                 logger.warning("AddDocument sent to a VS index; ignoring")
 
@@ -609,10 +655,15 @@ class VsIndexActor:
             slots = [b.slots for b in blocks]
             epochs = [b.epochs for b in blocks]
             vecs = [b.vectors for b in blocks]
+            parts = [np.full((len(b),), b.partition_id.slot, dtype=np.int32) for b in blocks]
             if live:
                 slots.append(np.asarray([add_slots[i] for i in live], dtype=np.int64))
                 epochs.append(np.asarray([add_epochs[i] for i in live], dtype=np.int32))
                 vecs.append(np.stack([add_vecs[i] for i in live]))
+                parts.append(np.asarray([add_parts[i] for i in live], dtype=np.int32))
             self.engine.upsert_batch(
-                np.concatenate(slots), np.concatenate(epochs), np.concatenate(vecs)
+                np.concatenate(slots),
+                np.concatenate(epochs),
+                np.concatenate(vecs),
+                partitions=np.concatenate(parts) if self.is_local else None,
             )
