@@ -1,7 +1,8 @@
 """The CUDA scan kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (the kernels build at first use)
-and skip elsewhere; on a GPU machine run them with
+and skip elsewhere. The grouped scan runs at g = 1, 2, 4 and 8 clusters
+per block and over int8 rows (the I8 index). On a GPU machine run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -79,6 +80,60 @@ def test_grouped_scan_matches_plain(cuda, dtype):
         rows = slice(c * cmax, (c + 1) * cmax)
         full[c * s : (c + 1) * s, rows] = a[rows] * (qg[c * s : (c + 1) * s].float() @ v[rows].float().T) + b[rows]
     _assert_close_to_plain(rank, pos, prank, full)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", DTYPES + (torch.int8,))
+def test_grouped_scan_g_clusters_per_block(cuda, dtype, g):
+    """g clusters per block (kernel 4) and the I8 instantiation (int8 rows,
+    bf16 queries): the plain version's ranks, and the same output at every
+    g."""
+    rng = np.random.default_rng(g)
+    nlist, cmax, s, d = 16, 256, 20, 48
+    v = _rows(rng, nlist * cmax, d, cuda, torch.float32)
+    a = torch.full((nlist * cmax,), -1.0, device=cuda)
+    if dtype is torch.int8:
+        v = torch.clamp(torch.round(v * 127), -127, 127).to(torch.int8)
+        a = -1.0 / v.float().norm(dim=1)
+    else:
+        v = v.to(dtype)
+    qg = _rows(rng, nlist * s, d, cuda, torch.bfloat16 if dtype is torch.int8 else dtype)
+    b = torch.zeros(nlist * cmax, device=cuda)
+    b[::7] = fused_scan.INVALID_BIAS
+    before = dict(ivf.grouped_scan.launches_by)
+    rank, pos = ivf.grouped_scan(qg, v, a, b, s, cmax, g=g)
+    key = (str(dtype).removeprefix("torch."), g)
+    assert ivf.grouped_scan.launches_by[key] == before.get(key, 0) + 1
+    prank, _ = ivf.grouped_scan_plain(qg, v, a, b, s, cmax)
+    full = torch.full((nlist * s, nlist * cmax), float("inf"), device=cuda)
+    for c in range(nlist):
+        rows = slice(c * cmax, (c + 1) * cmax)
+        full[c * s : (c + 1) * s, rows] = a[rows] * (qg[c * s : (c + 1) * s].float() @ v[rows].float().T) + b[rows]
+    _assert_close_to_plain(rank, pos, prank, full)
+    rank1, pos1 = ivf.grouped_scan(qg, v, a, b, s, cmax, g=1)
+    assert torch.equal(rank, rank1) and torch.equal(pos, pos1)
+    with pytest.raises(ValueError, match="divide"):
+        ivf.grouped_scan(qg, v, a, b, s, cmax, g=3)
+
+
+@pytest.mark.parametrize("nq", [3, 40])
+def test_i8_distances_on_the_card_are_exact(cuda, nq):
+    """The I8 integer product (torch._int_mm on the card) equals the CPU's
+    int64 product at 1536-d, where an f32 product would round."""
+    from vector_store_tpu_torch.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.ops import distance
+
+    rng = np.random.default_rng(nq)
+    q = rng.normal(size=(nq, 1536)).astype(np.float32)
+    v = rng.normal(size=(37, 1536)).astype(np.float32)
+    for space in (SpaceType.EUCLIDEAN, SpaceType.COSINE, SpaceType.DOT_PRODUCT):
+        qs, q_aux = distance.prepare_queries(q / np.abs(q).max(), space, Quantization.I8)
+        vs, v_aux = distance.prepare_queries(v / np.abs(v).max(), space, Quantization.I8)
+        want = distance.pairwise_distance(qs, vs, space, Quantization.I8, q_aux, v_aux)
+        got = distance.pairwise_distance(
+            qs.to(cuda), vs.to(cuda), space, Quantization.I8, q_aux.to(cuda), v_aux.to(cuda)
+        )
+        assert torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

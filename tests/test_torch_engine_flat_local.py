@@ -21,7 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from vector_store_tpu.core.types import Quantization, SpaceType  # noqa: E402
+from torch_parity import to_jax  # noqa: E402
+from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
 from vector_store_tpu_torch.engine import flat as port_flat  # noqa: E402
 from vector_store_tpu_torch.engine.flat import (  # noqa: E402
     LOCAL_RESERVE_INCREMENT,
@@ -38,7 +39,7 @@ def jax_index(space=SpaceType.EUCLIDEAN, quant=Quantization.F32):
     from vector_store_tpu.engine.flat import FlatDeviceIndex as JaxFlat
 
     idx = JaxFlat(
-        D, space_type=space, quantization=quant, initial_capacity=512, block_rows=64,
+        D, space_type=to_jax(space), quantization=to_jax(quant), initial_capacity=512, block_rows=64,
         reserve_increment=LOCAL_RESERVE_INCREMENT,
     )
     idx._part_interpret = True

@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from vector_store_tpu.core.types import Quantization, SpaceType  # noqa: E402
+from torch_parity import to_jax  # noqa: E402
+from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
 from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -47,7 +48,7 @@ def jax_index(space):
     from vector_store_tpu.engine.ivf import IvfDeviceIndex as JaxIvf
 
     return JaxIvf(
-        D, space_type=space, quantization=Quantization.F32, initial_capacity=4096,
+        D, space_type=to_jax(space), quantization=to_jax(Quantization.F32), initial_capacity=4096,
         min_build=1024, kmeans_block=1024, nprobe=16, kmeans_iters=4,
         interpret=True, query_i8=False, approx_select=False,
     )
@@ -169,4 +170,4 @@ def test_exact_host_and_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         idx.search(vecs[:1], 1, partitions=np.array([3]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IvfDeviceIndex(D, quantization=Quantization.I8, device=CPU)
+        IvfDeviceIndex(D, quantization=Quantization.B1, device=CPU)

@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from vector_store_tpu.core.types import Quantization, SpaceType  # noqa: E402
+from torch_parity import to_jax  # noqa: E402
+from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
 from vector_store_tpu.ops import pallas_scan as jscan  # noqa: E402
 from vector_store_tpu_torch.ops import fused_scan  # noqa: E402
 from vector_store_tpu_torch.ops.distance import prepare_queries  # noqa: E402
@@ -42,7 +43,7 @@ def _case(space, quant, seed=9):
 def _jax_inputs(vs, qs, a, b, quant):
     from vector_store_tpu.ops.quantize import storage_dtype
 
-    dt = storage_dtype(quant)
+    dt = storage_dtype(to_jax(quant))
     pad = lambda x: np.pad(x.float().numpy(), [(0, 0), (0, 128 - x.shape[1])])  # noqa: E731
     paux = np.zeros((8, N), np.float32)
     paux[0], paux[1] = a.numpy(), b.numpy()

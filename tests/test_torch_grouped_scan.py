@@ -14,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from vector_store_tpu.core.types import Quantization, SpaceType  # noqa: E402
+from torch_parity import to_jax  # noqa: E402
+from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
 from vector_store_tpu.ops import ivf as jivf  # noqa: E402
 from vector_store_tpu_torch.ops import fused_scan, ivf  # noqa: E402
 from vector_store_tpu_torch.ops.distance import prepare_queries  # noqa: E402
@@ -40,7 +41,7 @@ def _jax(x: torch.Tensor, quant):
     from vector_store_tpu.ops.quantize import storage_dtype
 
     arr = np.pad(x.float().numpy(), [(0, 0), (0, 128 - x.shape[1])])
-    return jnp.asarray(arr, storage_dtype(quant))
+    return jnp.asarray(arr, storage_dtype(to_jax(quant)))
 
 
 def _jpaux(a, b):

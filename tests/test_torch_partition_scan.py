@@ -16,7 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from vector_store_tpu.core.types import Quantization, SpaceType  # noqa: E402
+from torch_parity import to_jax  # noqa: E402
+from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
 from vector_store_tpu.ops import partition_scan as jpart  # noqa: E402
 from vector_store_tpu_torch.ops import fused_scan  # noqa: E402
 from vector_store_tpu_torch.ops import partition_scan as ps  # noqa: E402
@@ -50,7 +51,7 @@ def _case(space, quant, seed=3):
 def _jax_inputs(vs, qs, a, b, quant):
     from vector_store_tpu.ops.quantize import storage_dtype
 
-    dt = storage_dtype(quant)
+    dt = storage_dtype(to_jax(quant))
     pad = lambda x: np.pad(x.float().numpy(), [(0, 0), (0, 128 - x.shape[1])])  # noqa: E731
     paux = np.zeros((8, vs.shape[0]), np.float32)
     paux[0], paux[1] = a.numpy(), b.numpy()

@@ -4,7 +4,7 @@ Both services are seeded with the same FakeDb contents (100 rows in 3-d,
 one default index: COSINE, F32, global) and served on local ports; the
 same ANN requests must return the same primary keys with distances within
 1e-6. A self-query returns distance 0.0, a CDC upsert becomes searchable,
-and an index kind the port does not serve yet (B1, I8) answers with its
+and an index kind the port does not serve yet (B1, a local I8 index) answers with its
 NotImplementedError instead of another engine.
 
 A local (per-partition) index is served like the JAX service serves it:
@@ -24,16 +24,18 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 aiohttp = pytest.importorskip("aiohttp")
 
-from vector_store_tpu.core.types import DbIndexPartitioning, Quantization  # noqa: E402
-from vector_store_tpu.db.fake import (  # noqa: E402
-    FakeDb,
-    FakeIndex,
-    FakeTable,
-    make_vs_metadata,
-    vector_row,
-)
-from vector_store_tpu.service.config import Config  # noqa: E402
-from vector_store_tpu.service.node_state import IndexStatus  # noqa: E402
+import vector_store_tpu.core.types as jax_types  # noqa: E402
+import vector_store_tpu.db.fake as jax_fake  # noqa: E402
+import vector_store_tpu.service.config as jax_config  # noqa: E402
+import vector_store_tpu_torch.core.types as port_types  # noqa: E402
+import vector_store_tpu_torch.db.fake as port_fake  # noqa: E402
+import vector_store_tpu_torch.service.config as port_config  # noqa: E402
+from vector_store_tpu_torch.service.node_state import IndexStatus  # noqa: E402
+
+# each service gets its own package's FakeDb, Config and enums: nothing
+# typed by the JAX package crosses into the port
+JAX = (jax_types, jax_fake, jax_config.Config)
+PORT = (port_types, port_fake, port_config.Config)
 
 N, DIMS = 100, 3
 
@@ -44,18 +46,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def seeded_db(vecs, **md_kwargs) -> FakeDb:
-    db = FakeDb()
-    db.add_table(FakeTable("ks", "tbl", ("pk",)))
-    rows = [vector_row((i,), vecs[i].tolist(), 100) for i in range(len(vecs))]
-    db.add_index(FakeIndex(metadata=make_vs_metadata(dimensions=DIMS, **md_kwargs), scan=rows))
+def seeded_db(vecs, side=PORT, **md_kwargs):
+    _, fake, _ = side
+    db = fake.FakeDb()
+    db.add_table(fake.FakeTable("ks", "tbl", ("pk",)))
+    rows = [fake.vector_row((i,), vecs[i].tolist(), 100) for i in range(len(vecs))]
+    db.add_index(fake.FakeIndex(metadata=fake.make_vs_metadata(dimensions=DIMS, **md_kwargs), scan=rows))
     return db
 
 
-async def start(serve_fn, db, **kw):
+async def start(serve_fn, db, side=PORT, **kw):
     port = free_port()
     service = await serve_fn(
-        db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.05), **kw
+        db, side[2](uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.05), **kw
     )
     return service, f"http://127.0.0.1:{port}/api/v1/indexes/ks/idx"
 
@@ -87,8 +90,8 @@ async def test_port_serves_like_jax_service():
     rng = np.random.default_rng(5)
     vecs = rng.normal(size=(N, DIMS)).astype(np.float32)
     queries = rng.normal(size=(12, DIMS)).astype(np.float32)
-    jax_db, port_db = seeded_db(vecs), seeded_db(vecs)
-    jax_svc, jax_base = await start(jax_serve, jax_db)
+    jax_db, port_db = seeded_db(vecs, JAX), seeded_db(vecs)
+    jax_svc, jax_base = await start(jax_serve, jax_db, JAX)
     port_svc, base = await start(serve, port_db, device=torch.device("cpu"))
     try:
         async with aiohttp.ClientSession() as http:
@@ -105,7 +108,7 @@ async def test_port_serves_like_jax_service():
             assert got["primary_keys"]["pk"][0] == 7 and got["distances"][0] == 0.0
             # CDC upsert becomes searchable
             new = np.array([0.3, -2.0, 0.9], np.float32)
-            await port_db.db_indexes[("ks", "idx")].push_cdc(vector_row((1000,), new.tolist(), 200))
+            await port_db.db_indexes[("ks", "idx")].push_cdc(port_fake.vector_row((1000,), new.tolist(), 200))
             await wait_count(http, base, N + 1)
             status, got = await ann(http, base, new, 1)
             assert got["primary_keys"]["pk"] == [1000] and got["distances"] == [0.0]
@@ -117,11 +120,52 @@ async def test_port_serves_like_jax_service():
         await jax_svc.stop()
 
 
+async def test_global_i8_index_serves_like_jax_service():
+    """A global I8 index (COSINE): the integer scan, its bf16 rescore tier
+    and the exact f32 host distances answer like the JAX service."""
+    from vector_store_tpu.run import serve as jax_serve
+    from vector_store_tpu_torch.run import serve
+
+    rng = np.random.default_rng(9)
+    vecs = rng.normal(size=(N, DIMS)).astype(np.float32)
+    queries = rng.normal(size=(12, DIMS)).astype(np.float32)
+    jax_db = seeded_db(vecs, JAX, quantization=jax_types.Quantization.I8)
+    port_db = seeded_db(vecs, quantization=port_types.Quantization.I8)
+    jax_svc, jax_base = await start(jax_serve, jax_db, JAX)
+    port_svc, base = await start(serve, port_db, device=torch.device("cpu"))
+    try:
+        async with aiohttp.ClientSession() as http:
+            await wait_count(http, jax_base, N)
+            await wait_count(http, base, N)
+            engine = port_svc.indexes.get_vs(("ks", "idx")).actor.engine
+            assert engine.quantization is port_types.Quantization.I8 and engine._delta.rescore
+            for q in queries:
+                _, want = await ann(http, jax_base, q, 5)
+                status, got = await ann(http, base, q, 5)
+                assert status == 200, got
+                assert got["primary_keys"] == want["primary_keys"]
+                np.testing.assert_allclose(got["distances"], want["distances"], rtol=0, atol=1e-6)
+            status, got = await ann(http, base, vecs[11], 3)
+            assert got["primary_keys"]["pk"][0] == 11 and got["distances"][0] == 0.0
+            new = np.array([-0.4, 1.5, 0.2], np.float32)
+            await port_db.db_indexes[("ks", "idx")].push_cdc(port_fake.vector_row((1000,), new.tolist(), 200))
+            await wait_count(http, base, N + 1)
+            status, got = await ann(http, base, new, 1)
+            assert got["primary_keys"]["pk"] == [1000] and got["distances"] == [0.0]
+    finally:
+        await port_svc.stop()
+        await jax_svc.stop()
+
+
 @pytest.mark.parametrize(
     "md_kwargs",
     [
-        {"quantization": Quantization.B1},
-        {"quantization": Quantization.I8},
+        {"quantization": port_types.Quantization.B1},
+        # global I8 is served (test_global_i8_index_serves_like_jax_service); a local I8 index is not
+        {
+            "quantization": port_types.Quantization.I8,
+            "partitioning": port_types.DbIndexPartitioning.local(("pk",)),
+        },
     ],
     ids=["b1", "i8"],
 )
@@ -158,19 +202,20 @@ def local_vec(pk: int, ck: int) -> list[float]:
     return [float(pk + 1), float(ck + 1), 1.0, 0.0]
 
 
-def local_db() -> FakeDb:
-    db = FakeDb()
-    db.add_table(FakeTable("ks", "tbl", ("pk", "ck")))
+def local_db(side=PORT):
+    types, fake, _ = side
+    db = fake.FakeDb()
+    db.add_table(fake.FakeTable("ks", "tbl", ("pk", "ck")))
     rows = [
-        vector_row((pk, ck), local_vec(pk, ck), 100) for pk in range(N_PK) for ck in range(N_CK)
+        fake.vector_row((pk, ck), local_vec(pk, ck), 100) for pk in range(N_PK) for ck in range(N_CK)
     ]
-    md = make_vs_metadata(
+    md = fake.make_vs_metadata(
         dimensions=LOCAL_DIMS,
         primary_key_columns=("pk", "ck"),
         partition_key_count=1,
-        partitioning=DbIndexPartitioning.local(("pk",)),
+        partitioning=types.DbIndexPartitioning.local(("pk",)),
     )
-    db.add_index(FakeIndex(metadata=md, scan=rows))
+    db.add_index(fake.FakeIndex(metadata=md, scan=rows))
     return db
 
 
@@ -197,8 +242,8 @@ async def test_local_index_serves_like_jax_service():
     n = N_PK * N_CK
     rng = np.random.default_rng(8)
     queries = rng.normal(size=(12, LOCAL_DIMS)).astype(np.float32)
-    jax_db, port_db = local_db(), local_db()
-    jax_svc, jax_base = await start(jax_serve, jax_db)
+    jax_db, port_db = local_db(JAX), local_db()
+    jax_svc, jax_base = await start(jax_serve, jax_db, JAX)
     port_svc, base = await start(serve, port_db, device=torch.device("cpu"))
     try:
         async with aiohttp.ClientSession() as http:
@@ -229,9 +274,9 @@ async def test_local_index_serves_like_jax_service():
             # CDC: an update of (1, 2)'s vector in its own partition and an
             # insert of (3, 9); both become the first hit at distance 0
             upd, new = [0.2, -1.0, 3.0, 0.5], [-2.0, 0.3, 0.1, 1.0]
-            for db in (jax_db, port_db):
-                await db.db_indexes[("ks", "idx")].push_cdc(vector_row((1, 2), upd, 200))
-                await db.db_indexes[("ks", "idx")].push_cdc(vector_row((3, 9), new, 200))
+            for db, (_, fake, _) in ((jax_db, JAX), (port_db, PORT)):
+                await db.db_indexes[("ks", "idx")].push_cdc(fake.vector_row((1, 2), upd, 200))
+                await db.db_indexes[("ks", "idx")].push_cdc(fake.vector_row((3, 9), new, 200))
             for vec, pk, key in ((upd, 1, (1, 2)), (new, 3, (3, 9))):
                 want = await wait_first(http, jax_base, vec, pk, key)
                 got = await wait_first(http, base, vec, pk, key)
@@ -250,4 +295,4 @@ async def test_service_requires_cuda_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        await build_service(FakeDb(), Config())
+        await build_service(port_fake.FakeDb(), port_config.Config())

@@ -11,17 +11,21 @@
 // Design (a simple, correct first kernel; no wgmma or TMA yet):
 // - a block has 128 threads, one per lane, and a tile of NQ query rows
 //   (QT = 16 by default; 1 in the partition scan, where each query reads
-//   rows of its own), staged once in shared memory as f32 [NQ][dp];
+//   rows of its own), staged once in shared memory as f32 [NQ][dp]. The
+//   query type (stage_queries) and the storage type (scan_rows) are
+//   template parameters of their own: the IVF engine's I8 storage is
+//   scanned by bf16 queries;
 // - the block walks the group 256 rows at a time; each tile is copied to
-//   shared memory DK dimensions at a time with coalesced 16-byte loads
-//   (f16/bf16 converted to f32 with the intrinsics), so the global reads
-//   are whole cache lines;
+//   shared memory DK dimensions at a time with coalesced loads of 8
+//   elements (16 bytes of f16/bf16, 8 bytes of int8; converted to f32 with
+//   the intrinsics), so the global reads are whole cache lines;
 // - thread `lane` then takes rows `lane` and `lane + 128` of the tile (both
 //   its lane's) from shared memory (rows padded by 4 floats: conflict-free
 //   16-byte reads) and accumulates 2 x NQ dot products in f32 registers
 //   against the query tile (shared-memory broadcasts, each used for both
-//   rows). Products of f16/bf16 values are exact in f32 and F32 storage
-//   keeps full f32 precision: no TF32 anywhere;
+//   rows). Products of f16/bf16 values, and of a bf16 query with an int8
+//   row, are exact in f32, and F32 storage keeps full f32 precision: no
+//   TF32 anywhere;
 // - the running (min rank, row) per query stays in registers, rows in
 //   increasing order, and each thread writes its NQ candidates at the end
 //   (coalesced across lanes).
@@ -46,7 +50,8 @@ inline size_t smem_bytes(int dp, int nq = QT) {
   return sizeof(float) * (nq * dp + TILE_ROWS * ROW_PITCH);
 }
 
-enum DType : int { F32 = 0, F16 = 1, BF16 = 2 };
+// storage types; I8 rows are scanned by bf16 queries (grouped scan only)
+enum DType : int { F32 = 0, F16 = 1, BF16 = 2, I8 = 3 };
 
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   const float4 u = *reinterpret_cast<const float4*>(p);
@@ -75,6 +80,15 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+
+// int8 rows: one 8-byte load, each value converted to f32 (exact)
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const char4 lo = *reinterpret_cast<const char4*>(&u.x);
+  const char4 hi = *reinterpret_cast<const char4*>(&u.y);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -116,9 +130,9 @@ __device__ __forceinline__ void dot_tile(const float* __restrict__ qs,
   }
 }
 
-// Scan rows [row0, row0 + nrows) (nrows a multiple of LANES) against the
-// staged queries `qs`, using `vs` [TILE_ROWS][ROW_PITCH] as the row tile;
-// returns each query's winner among this thread's rows.
+// Scan rows [row0, row0 + nrows) (nrows a multiple of LANES) of storage
+// type T against the staged queries `qs`, using `vs` [TILE_ROWS][ROW_PITCH]
+// as the row tile; returns each query's winner among this thread's rows.
 template <typename T, int NQ>
 __device__ void scan_rows(const float* __restrict__ qs, float* __restrict__ vs,
                           const T* __restrict__ vectors,

@@ -1,14 +1,22 @@
 """Exact (brute-force) device-resident vector index.
 
-Counterpart of vector_store_tpu/engine/flat.py for F32/F16/BF16 indexes.
-It serves small global indexes, every local (per-partition) index, and is
-the IVF engine's delta region. Device state, slot-indexed like the
-reference's PrimaryId slots:
+Counterpart of vector_store_tpu/engine/flat.py for F32/F16/BF16 and I8
+indexes. It serves small global indexes, every local (per-partition)
+F32/F16/BF16 index, and is the IVF engine's delta region. Device state,
+slot-indexed like the reference's PrimaryId slots:
 
 - vectors [cap, Dp]  storage dtype
 - a, b    [cap] f32  rank coefficients of the fused scan (b = INVALID_BIAS
                      for never-written or removed slots)
+- aux     [cap] f32  |v| for cosine (zeros otherwise), for the exact scans
 - parts   [cap] i32  partition slot of each row (-1 = none)
+
+I8 storage has no fused scan (the JAX package ran it as XLA, not Pallas):
+its search is an exact block-wise scan of integer products
+(``_flat_search``) that fetches ``oversample`` x k candidates, re-ranked
+by the bf16 rescore tier (``rescore_vectors`` [cap, Dp'] bf16 and
+``rescore_aux``, ``_rescore_stage``): the reference's oversampling and
+rescoring index options.
 
 Validity, epochs and an f32 copy of every stored vector live in host
 mirrors: a search ships only [B, k] int32 winner slots back, and the host
@@ -25,8 +33,7 @@ package) and a partition-major mirror of the rows (``part_vecs``
 ops/partition_scan.py) reads one bucket per query. A query naming a
 partition costs O(pmax) rows instead of a masked scan of the table.
 
-Not ported yet (ROADMAP.md, port queue): the I8/B1 search with its bf16
-rescore tier.
+Not ported yet (ROADMAP.md, port queue): local I8 indexes and B1.
 """
 
 from __future__ import annotations
@@ -37,8 +44,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vector_store_tpu.core.types import Quantization, SpaceType
-from vector_store_tpu.utils import hotpath
+from vector_store_tpu_torch.core.types import Quantization, SpaceType
+from vector_store_tpu_torch.utils import hotpath
 from vector_store_tpu_torch.ops.distance import (
     pairwise_distance,
     prepare_queries,
@@ -57,7 +64,7 @@ from vector_store_tpu_torch.ops.partition_scan import (
     PLAIN_CHUNK_ELEMS,
     partition_candidates,
 )
-from vector_store_tpu_torch.ops.quantize import padded_dim, storage_dtype
+from vector_store_tpu_torch.ops.quantize import padded_dim, quantize_i8, storage_dtype
 from vector_store_tpu_torch.ops.topk import merge_min_k
 
 logger = logging.getLogger(__name__)
@@ -100,14 +107,16 @@ class PendingSearch:
 
     ``packed`` is [B, k] int32 winner slots (-1 empty); exact distances
     and epochs come from the host mirrors. A raw search (the IVF engine's
-    delta region) leaves ``packed`` [B, k] f32 rank values and ``rows``
-    [B, k] int32 rows instead, for the engine's own merge."""
+    delta region) leaves ``packed`` [B, k] f32 rank values (distances for
+    I8, ``is_dist``) and ``rows`` [B, k] int32 rows instead, for the
+    engine's own merge."""
 
     packed: torch.Tensor
     b_real: int
     k: int
     rows: torch.Tensor | None = None
     q_f32: np.ndarray | None = None  # [B, D] normalized f32 queries
+    is_dist: bool = False  # raw ``packed`` holds true distances (I8)
 
 
 def pull_packed(t: torch.Tensor) -> np.ndarray:
@@ -196,23 +205,38 @@ class FlatDeviceIndex:
         reserve_increment: int = GLOBAL_RESERVE_INCREMENT,
         block_rows: int | None = None,
         rescoring: bool = True,
+        oversample: int = 4,
     ) -> None:
         self.dimensions = dimensions
         self.space_type = space_type
         self.quantization = quantization
         self.device = torch.device(device)
-        self.dtype = storage_dtype(quantization)  # raises for I8/B1
+        self.dtype = storage_dtype(quantization)  # raises for B1
         self.dp = padded_dim(dimensions, quantization)
         self.block_rows = block_rows or block_rows_for(self.dp)
         self.reserve_increment = reserve_increment
         # rescoring=False (index option): device rank order is the result
         # order; the exact f32 recompute only supplies the distances
         self.rescoring = rescoring
+        # I8 keeps a bf16 copy of every row: the integer scan fetches
+        # oversample x k candidates and the tier re-ranks them (off with
+        # rescoring=False: storage-precision order end to end)
+        self.rescore = quantization is Quantization.I8 and rescoring
+        self.oversample = oversample if self.rescore else 1
+        self.dp_rescore = padded_dim(dimensions, Quantization.BF16)
         cap = self._round_cap(max(initial_capacity, self.block_rows))
         self.vectors = torch.zeros((cap, self.dp), dtype=self.dtype, device=self.device)
         self.a = torch.zeros((cap,), dtype=torch.float32, device=self.device)
         self.b = torch.full((cap,), INVALID_BIAS, dtype=torch.float32, device=self.device)
+        self.aux = torch.zeros((cap,), dtype=torch.float32, device=self.device)
         self.parts = torch.full((cap,), -1, dtype=torch.int32, device=self.device)
+        self.rescore_vectors: torch.Tensor | None = None  # [cap, dp_rescore] bf16
+        self.rescore_aux: torch.Tensor | None = None  # [cap] f32 (|v| for cosine)
+        if self.rescore:
+            self.rescore_vectors = torch.zeros(
+                (cap, self.dp_rescore), dtype=torch.bfloat16, device=self.device
+            )
+            self.rescore_aux = torch.zeros((cap,), dtype=torch.float32, device=self.device)
         self._live = 0
         self._valid_host = np.zeros((cap,), dtype=bool)
         self._epochs_host = np.full((cap,), -1, dtype=np.int32)
@@ -252,10 +276,12 @@ class FlatDeviceIndex:
 
     @property
     def device_bytes(self) -> int:
-        """Device footprint: the slot tensors plus, for a local index, the
-        directory and its partition-major mirror (a second copy of the
-        rows)."""
-        total = self.capacity * (self.vectors.element_size() * self.dp + 12)
+        """Device footprint: the slot tensors, the I8 rescore tier, and for
+        a local index the directory and its partition-major mirror (a
+        second copy of the rows)."""
+        total = self.capacity * (self.vectors.element_size() * self.dp + 16)
+        if self.rescore:
+            total += self.capacity * (2 * self.dp_rescore + 4)
         if self.part_rows is not None:
             total += 4 * self.part_rows.numel()
         if self.part_vecs is not None:
@@ -287,7 +313,13 @@ class FlatDeviceIndex:
         )
         self.a = torch.cat([self.a, self.a.new_zeros((grow,))])
         self.b = torch.cat([self.b, self.b.new_full((grow,), INVALID_BIAS)])
+        self.aux = torch.cat([self.aux, self.aux.new_zeros((grow,))])
         self.parts = torch.cat([self.parts, self.parts.new_full((grow,), -1)])
+        if self.rescore:
+            self.rescore_vectors = torch.cat(
+                [self.rescore_vectors, self.rescore_vectors.new_zeros((grow, self.dp_rescore))]
+            )
+            self.rescore_aux = torch.cat([self.rescore_aux, self.rescore_aux.new_zeros((grow,))])
         self._valid_host = _grown(self._valid_host, new, False)
         self._epochs_host = _grown(self._epochs_host, new, -1)
         self._vecs_host = _grown(self._vecs_host, new, 0.0)
@@ -298,13 +330,24 @@ class FlatDeviceIndex:
 
     def _store(self, slots: torch.Tensor | slice, rows_f32: torch.Tensor) -> None:
         """Quantize f32 rows [n, D] (normalized for cosine) on their device
-        and write them with their rank coefficients."""
-        pad = self.dp - rows_f32.shape[1]
-        vals = torch.nn.functional.pad(rows_f32, (0, pad)).to(self.dtype)
+        and write them with their rank coefficients (and, for I8, their
+        bf16 rescore rows)."""
+        padded = torch.nn.functional.pad(rows_f32, (0, self.dp - rows_f32.shape[1]))
+        if self.quantization is Quantization.I8:
+            vals = quantize_i8(padded)
+        else:
+            vals = padded.to(self.dtype)
         a, b = paux_coeffs(self.space_type, vals)
         self.vectors[slots] = vals
         self.a[slots] = a
         self.b[slots] = b
+        self.aux[slots] = vector_aux(vals, self.space_type, self.quantization)
+        if self.rescore:
+            rvals = torch.nn.functional.pad(
+                rows_f32, (0, self.dp_rescore - rows_f32.shape[1])
+            ).to(torch.bfloat16)
+            self.rescore_vectors[slots] = rvals
+            self.rescore_aux[slots] = vector_aux(rvals, self.space_type, Quantization.BF16)
 
     @hotpath.measure
     def upsert_batch(
@@ -317,6 +360,7 @@ class FlatDeviceIndex:
         slots = np.asarray(slots, dtype=np.int64)
         if slots.size == 0:
             return
+        self._require_unpartitioned_i8(partitions)
         epochs = np.asarray(epochs, dtype=np.int32)
         vectors = np.asarray(vectors, dtype=np.float32)
         parts = (
@@ -373,6 +417,7 @@ class FlatDeviceIndex:
             rh = normalize_rows(rh)
         self._store(slice(lo, hi), rows)
         if partitions is not None:
+            self._require_unpartitioned_i8(partitions)
             parts = np.asarray(partitions, dtype=np.int64)
             self.parts[lo:hi] = torch.from_numpy(parts.astype(np.int32)).to(self.device)
             # fresh slots: plain appends to the directory
@@ -400,6 +445,17 @@ class FlatDeviceIndex:
             self._flush_part_dirty(dirty)
 
     # -- partition directory ---------------------------------------------------
+
+    def _require_unpartitioned_i8(self, partitions) -> None:
+        if (
+            self.quantization is Quantization.I8
+            and partitions is not None
+            and (np.asarray(partitions) >= 0).any()
+        ):
+            raise NotImplementedError(
+                "local (per-partition) I8 indexes are not ported yet "
+                "(ROADMAP.md, port queue: local I8 and B1/Hamming)"
+            )
 
     def partition_count(self, part_slot: int) -> int:
         """Live rows in one partition (O(1) from the directory; the serving
@@ -591,7 +647,10 @@ class FlatDeviceIndex:
         a, b), ``valid``, ``epochs`` and ``_vecs_host``, and its partition
         directory ``_part_bucket`` (a dict), ``_part_rows_host``,
         ``_part_count`` (both None without a directory), ``_slot_part``,
-        ``_slot_pos`` and ``_part_overflow``. Capacity is rounded up to this
+        ``_slot_pos`` and ``_part_overflow``; an I8 index also takes its
+        rescore tier ``rescore_vectors`` and ``rescore_aux``, and its rank
+        coefficients come from the vectors (the JAX package keeps none for
+        I8: validity is ``valid`` alone). Capacity is rounded up to this
         engine's scan block; rows are cut to its padded row length (the JAX
         package pads to 128)."""
         dev = self.device
@@ -603,12 +662,21 @@ class FlatDeviceIndex:
         self.vectors = torch.zeros((cap, self.dp), dtype=self.dtype, device=dev)
         self.vectors[:n] = torch.from_numpy(np.ascontiguousarray(vecs)).to(self.dtype).to(dev)
         self.a = torch.zeros((cap,), dtype=torch.float32, device=dev)
-        self.a[:n] = torch.from_numpy(paux[0].copy()).to(dev)
         self.b = torch.full((cap,), INVALID_BIAS, dtype=torch.float32, device=dev)
+        if self.quantization is Quantization.I8:
+            paux = np.stack([t.cpu().numpy() for t in paux_coeffs(self.space_type, self.vectors[:n])])
+        self.a[:n] = torch.from_numpy(paux[0].copy()).to(dev)
         self.b[:n] = torch.from_numpy(np.where(valid, paux[1], INVALID_BIAS)).to(dev)
+        self.aux = vector_aux(self.vectors, self.space_type, self.quantization)
         self._valid_host = _grown(valid, cap, False)
         self._epochs_host = _grown(np.asarray(state["epochs"], dtype=np.int32), cap, -1)
         self._vecs_host = _grown(np.asarray(state["_vecs_host"], dtype=np.float32), cap, 0.0)
+        if self.rescore:
+            rv = np.asarray(state["rescore_vectors"]).astype(np.float32)[:, : self.dp_rescore]
+            self.rescore_vectors = torch.zeros((cap, self.dp_rescore), dtype=torch.bfloat16, device=dev)
+            self.rescore_vectors[:n] = torch.from_numpy(np.ascontiguousarray(rv)).to(dev)
+            self.rescore_aux = torch.zeros((cap,), dtype=torch.float32, device=dev)
+            self.rescore_aux[:n] = torch.from_numpy(np.array(state["rescore_aux"], dtype=np.float32)).to(dev)
         self._live = int(valid.sum())
         self._slot_part = _grown(np.asarray(state["_slot_part"], dtype=np.int64), cap, -1)
         self._slot_pos = _grown(np.asarray(state["_slot_pos"], dtype=np.int32), cap, -1)
@@ -650,7 +718,10 @@ class FlatDeviceIndex:
         keeps the rank values (kind "rank") for the IVF engine's region
         merge; queries_dev is an already device-resident [B, Dp] query
         tensor (the IVF engine shares one upload across its two regions).
-        With ``partitions`` each query sees only its partition's rows."""
+        With ``partitions`` each query sees only its partition's rows. An
+        I8 index ranks by the integer scan and the rescore tier; its raw
+        form holds true distances (``is_dist``), not rank values."""
+        self._require_unpartitioned_i8(partitions)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         if self.space_type is SpaceType.COSINE:
             queries = normalize_rows(queries)
@@ -661,6 +732,11 @@ class FlatDeviceIndex:
                 raise ValueError("a partitioned search has no raw form")
             ids = self._partitioned_ids(qs, np.asarray(partitions, dtype=np.int64), k)
             return PendingSearch(packed=ids, b_real=b_real, k=k, q_f32=queries)
+        if self.quantization is Quantization.I8:
+            dist, rows = self._i8_search(queries, qs, k)
+            if raw:
+                return PendingSearch(packed=dist, rows=rows, b_real=b_real, k=k, is_dist=True)
+            return PendingSearch(packed=rows, b_real=b_real, k=k, q_f32=queries)
         rank, rows = rank_search(
             self.vectors, self.a, self.b, qs, k=k, block_rows=self.block_rows
         )
@@ -727,10 +803,14 @@ class FlatDeviceIndex:
             )
         return out
 
-    def _masked_scan(self, qs: torch.Tensor, psel: torch.Tensor, k: int) -> torch.Tensor:
-        """Exact scan of the whole capacity with a per-query partition mask
-        (the JAX package's _flat_search with use_parts), block by block:
-        [B, block_rows] distances per step and a running top-k."""
+    def _flat_search(
+        self, qs: torch.Tensor, k: int, psel: torch.Tensor | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact scan of the whole capacity (the JAX package's
+        _flat_search), block by block: [B, block_rows] storage-precision
+        distances per step and a running top-k; ``psel`` [B] masks each
+        query to its partition (-1 = every partition). Returns (dist [B, k]
+        f32 ascending, inf for empty; slot [B, k] i32 or -1)."""
         nq = qs.shape[0]
         q_aux = vector_aux(qs, self.space_type, self.quantization)
         best_d = torch.full((nq, k), float("inf"), device=self.device)
@@ -739,16 +819,66 @@ class FlatDeviceIndex:
             hi = lo + self.block_rows
             vb = self.vectors[lo:hi]
             d = pairwise_distance(
-                qs, vb, self.space_type, self.quantization, q_aux,
-                vector_aux(vb, self.space_type, self.quantization),
+                qs, vb, self.space_type, self.quantization, q_aux, self.aux[lo:hi]
             )
-            keep = (self.b[lo:hi] < INVALID_CUTOFF)[None, :] & (
-                (psel[:, None] < 0) | (self.parts[lo:hi][None, :] == psel[:, None])
-            )
+            keep = (self.b[lo:hi] < INVALID_CUTOFF)[None, :]
+            if psel is not None:
+                keep = keep & (
+                    (psel[:, None] < 0) | (self.parts[lo:hi][None, :] == psel[:, None])
+                )
             d = torch.where(keep, d, float("inf"))
             bd, bi = torch.topk(d, min(k, vb.shape[0]), dim=1, largest=False)
             best_d, best_i = merge_min_k(best_d, best_i, bd, (bi + lo).to(torch.int32))
-        return torch.where(torch.isfinite(best_d), best_i, -1)
+        return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
+
+    def _masked_scan(self, qs: torch.Tensor, psel: torch.Tensor, k: int) -> torch.Tensor:
+        """[B, k] i32 winner slots of the exact scan with a per-query
+        partition mask (the JAX package's _flat_search with use_parts)."""
+        return self._flat_search(qs, k, psel)[1]
+
+    def _rescore_stage(
+        self,
+        cand: torch.Tensor,  # [B, K'] i32 candidate slots (-1 empty)
+        rqs: torch.Tensor,  # [B, dp_rescore] bf16 queries
+        rq_aux: torch.Tensor,  # [B] f32
+        k: int,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Re-rank the integer scan's oversampled candidates by their bf16
+        distances (the JAX package's _rescore_stage), a chunk of queries at
+        a time. Returns (dist [B, k] f32 ascending, slot [B, k] i32 or
+        -1)."""
+        nq, kc = cand.shape
+        kk = min(k, kc)
+        out_d = torch.full((nq, k), float("inf"), device=self.device)
+        out_i = torch.full((nq, k), -1, dtype=torch.int32, device=self.device)
+        step = max(1, PLAIN_CHUNK_ELEMS // (kc * self.dp_rescore))
+        for lo in range(0, nq, step):
+            ci = cand[lo : lo + step]
+            safe = torch.clamp(ci, min=0).long()
+            nd = query_block_distance(
+                rqs[lo : lo + step], self.rescore_vectors[safe], self.space_type,
+                Quantization.BF16, rq_aux[lo : lo + step], self.rescore_aux[safe],
+            )
+            nd = torch.where(ci >= 0, nd, float("inf"))
+            bd, pos = torch.topk(nd, kk, dim=1, largest=False, sorted=True)
+            out_d[lo : lo + step, :kk] = bd
+            out_i[lo : lo + step, :kk] = torch.where(
+                torch.isfinite(bd), torch.gather(ci, 1, pos), -1
+            )
+        return out_d, out_i
+
+    def _i8_search(
+        self, queries: np.ndarray, qs: torch.Tensor, k: int
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """I8 search of [B, D] (normalized) f32 queries, ``qs`` their I8
+        codes on the device: the integer scan fetches oversample x k
+        candidates and the rescore tier keeps k (with rescoring off, the
+        scan's k in storage precision)."""
+        dist, rows = self._flat_search(qs, min(k * self.oversample, self.capacity))
+        if not self.rescore:
+            return dist[:, :k], rows[:, :k]
+        rqs, rq_aux = prepare_queries(queries, self.space_type, Quantization.BF16)
+        return self._rescore_stage(rows, rqs.to(self.device), rq_aux.to(self.device), k)
 
     @hotpath.measure
     def search_collect(self, pending: PendingSearch) -> list[SearchResult]:

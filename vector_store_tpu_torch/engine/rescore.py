@@ -17,8 +17,8 @@ import ctypes
 
 import numpy as np
 
-from vector_store_tpu.core.types import SpaceType
-from vector_store_tpu.native import load_native
+from vector_store_tpu_torch.core.types import SpaceType
+from vector_store_tpu_torch.native import load_native
 
 _METRIC = {
     SpaceType.EUCLIDEAN: 0,

@@ -1,2 +1,2 @@
 """HTTP routes of the port (aiohttp); the server, OpenAPI document and
-Swagger UI are reused from vector_store_tpu.http."""
+Swagger UI are copies of vector_store_tpu.http's."""

@@ -10,12 +10,12 @@ import math
 
 from aiohttp import web
 
-import vector_store_tpu
-from vector_store_tpu.core.distance import similarity_score, saturate_f32
-from vector_store_tpu.core.filters import Restriction, RestrictionKind
-from vector_store_tpu.core.types import IndexKey, Limit
-from vector_store_tpu.service.indexes import BestIndexKind, Indexes
-from vector_store_tpu.service.node_state import (
+import vector_store_tpu_torch
+from vector_store_tpu_torch.core.distance import similarity_score, saturate_f32
+from vector_store_tpu_torch.core.filters import Restriction, RestrictionKind
+from vector_store_tpu_torch.core.types import IndexKey, Limit
+from vector_store_tpu_torch.service.indexes import BestIndexKind, Indexes
+from vector_store_tpu_torch.service.node_state import (
     NodeState,
     NodeStatus,
     index_status_http,
@@ -99,7 +99,7 @@ async def get_indexes(request: web.Request) -> web.Response:
 
 
 def _similarity_name(space_type) -> str:
-    from vector_store_tpu.core.types import SpaceType
+    from vector_store_tpu_torch.core.types import SpaceType
 
     return {
         SpaceType.EUCLIDEAN: "EUCLIDEAN",
@@ -526,7 +526,7 @@ async def post_index_bm25(request: web.Request) -> web.Response:
     entry = st.indexes.get_fts(key)
     if entry is None:
         return _err(404, f"missing index: {keyspace}.{index_name}")
-    from vector_store_tpu.service.node_state import IndexStatus
+    from vector_store_tpu_torch.service.node_state import IndexStatus
 
     if entry.status is not IndexStatus.SERVING:
         progress = entry.progress.percentage
@@ -567,8 +567,8 @@ async def get_info(request: web.Request) -> web.Response:
     return _json(
         {
             "engine": st.engine_version,
-            "service": vector_store_tpu.SERVICE_NAME,
-            "version": vector_store_tpu.__version__,
+            "service": vector_store_tpu_torch.SERVICE_NAME,
+            "version": vector_store_tpu_torch.__version__,
         }
     )
 
@@ -628,19 +628,19 @@ async def get_internal_session_counters(request: web.Request) -> web.Response:
 
 
 async def get_internal_hotpath(request: web.Request) -> web.Response:
-    from vector_store_tpu.utils import hotpath
+    from vector_store_tpu_torch.utils import hotpath
 
     return _json(hotpath.stats())
 
 
 async def get_openapi(request: web.Request) -> web.Response:
-    from vector_store_tpu.http.openapi import openapi_doc
+    from vector_store_tpu_torch.http.openapi import openapi_doc
 
     return _json(openapi_doc())
 
 
 async def get_swagger_ui(request: web.Request) -> web.Response:
-    from vector_store_tpu.http.swagger_ui import PAGE
+    from vector_store_tpu_torch.http.swagger_ui import PAGE
 
     return web.Response(text=PAGE, content_type="text/html", charset="utf-8")
 

@@ -1,14 +1,17 @@
 """Batched pairwise distances as matrix products.
 
-Counterpart of vector_store_tpu/ops/distance.py for float storage:
+Counterpart of vector_store_tpu/ops/distance.py for float and I8 storage:
 
 - EUCLIDEAN: squared L2, d = |q|^2 + |v|^2 - 2 q.v
 - COSINE: d = 1 - q.v / (|q| |v|), range [0, 2]
 - DOT_PRODUCT: d = 1 - q.v
 
 The per-vector auxiliary ("aux") is |v| for COSINE and unused otherwise.
-Products run in f32 (F32 storage promises full f32 distances, so TF32
-stays off: see vector_store_tpu_torch/__init__.py).
+Float products run in f32 (F32 storage promises full f32 distances, so TF32
+stays off: see vector_store_tpu_torch/__init__.py). I8 queries and rows
+(codes round(127 v)) take an exact integer product, as the JAX package's
+int32 dot does, and are scaled by 1/127^2 after it; aux and norms live in
+the /127 domain.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vector_store_tpu.core.types import Quantization, SpaceType
-from vector_store_tpu_torch.ops.quantize import padded_dim, quantize_for_storage
+from vector_store_tpu_torch.core.types import Quantization, SpaceType
+from vector_store_tpu_torch.ops.quantize import I8_SCALE, padded_dim, quantize_for_storage
 
 _EPS = 1e-30
 
@@ -37,30 +40,61 @@ def _require_float_space(space: SpaceType) -> None:
         )
 
 
+def _values(x: torch.Tensor, quantization: Quantization) -> torch.Tensor:
+    """Storage rows as the f32 values they stand for (I8 codes / 127)."""
+    if quantization is Quantization.I8:
+        return x.float() / I8_SCALE
+    return x.float()
+
+
 def vector_aux(
     x: torch.Tensor, space_type: SpaceType, quantization: Quantization
 ) -> torch.Tensor:
     """Per-vector auxiliary of the storage rows ``x`` [..., Dp]: |v| for
-    cosine (summed in f64), zeros otherwise."""
+    cosine (summed in f64; I8 rows in the /127 domain), zeros otherwise."""
     space = effective_space(space_type, quantization)
     _require_float_space(space)
     if space is SpaceType.COSINE:
-        return x.double().square().sum(-1).sqrt().float()
+        v = x.double()
+        if quantization is Quantization.I8:
+            v = v / I8_SCALE
+        return v.square().sum(-1).sqrt().float()
     return torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
 
 
-def _dot(queries: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+def _int_dot(queries: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """Exact products of I8 codes, [B, Nb] as f32 (the integer sum rounded
+    once, as the JAX package's int32 -> f32 cast rounds it).
+
+    A sum of 1536 products of 127^2 passes 2^24, so an f32 product would
+    round partial sums. On a CUDA device the product is ``torch._int_mm``
+    (int8 x int8 -> int32 on the tensor cores; its shape rules want more
+    than 16 query rows and a multiple of 8 output columns, so the operands
+    are zero-padded to them); on the CPU an int64 product."""
+    if queries.device.type != "cuda":
+        return (queries.long() @ block.long().T).float()
+    b, n = queries.shape[0], block.shape[0]
+    q = torch.nn.functional.pad(queries, (0, 0, 0, max(0, 17 - b)))
+    v = torch.nn.functional.pad(block, (0, 0, 0, -n % 8))
+    return torch._int_mm(q, v.T)[:b, :n].float()
+
+
+def _dot(queries: torch.Tensor, block: torch.Tensor, quantization: Quantization) -> torch.Tensor:
+    if quantization is Quantization.I8:
+        return _int_dot(queries, block) / (I8_SCALE * I8_SCALE)
     return queries.float() @ block.float().T
 
 
-def _finish(space, dot, q, v, q_aux, v_aux):
+def _finish(space, dot, q2, v2, q_aux, v_aux):
     if space is SpaceType.DOT_PRODUCT:
         return 1.0 - dot
     if space is SpaceType.COSINE:
         return 1.0 - dot / torch.clamp(q_aux * v_aux, min=_EPS)
-    q2 = q.float().square().sum(-1)
-    v2 = v.float().square().sum(-1)
-    return torch.clamp(q2.unsqueeze(-1) + v2 - 2.0 * dot, min=0.0)
+    return torch.clamp(q2 + v2 - 2.0 * dot, min=0.0)
+
+
+def _sq_norm(x: torch.Tensor, quantization: Quantization) -> torch.Tensor:
+    return _values(x, quantization).square().sum(-1)
 
 
 def pairwise_distance(
@@ -74,8 +108,12 @@ def pairwise_distance(
     """Distances [B, Nb] f32."""
     space = effective_space(space_type, quantization)
     _require_float_space(space)
-    dot = _dot(queries, block)
-    return _finish(space, dot, queries, block, q_aux[:, None], v_aux[None, :])
+    dot = _dot(queries, block, quantization)
+    q2 = v2 = None
+    if space is SpaceType.EUCLIDEAN:
+        q2 = _sq_norm(queries, quantization)[:, None]
+        v2 = _sq_norm(block, quantization)[None, :]
+    return _finish(space, dot, q2, v2, q_aux[:, None], v_aux[None, :])
 
 
 def query_block_distance(
@@ -86,15 +124,20 @@ def query_block_distance(
     q_aux: torch.Tensor,  # [B]
     v_aux: torch.Tensor,  # [B, m]
 ) -> torch.Tensor:
-    """Distances [B, m] f32 between each query and its own m rows."""
+    """Distances [B, m] f32 between each query and its own m rows. I8
+    products are summed in f64: exact integers, rounded once to f32."""
     space = effective_space(space_type, quantization)
     _require_float_space(space)
-    dot = torch.einsum("bd,bmd->bm", queries.float(), blocks.float())
+    if quantization is Quantization.I8:
+        dot = torch.einsum("bd,bmd->bm", queries.double(), blocks.double()).float()
+        dot = dot / (I8_SCALE * I8_SCALE)
+    else:
+        dot = torch.einsum("bd,bmd->bm", queries.float(), blocks.float())
+    q2 = v2 = None
     if space is SpaceType.EUCLIDEAN:
-        q2 = queries.float().square().sum(-1)
-        v2 = blocks.float().square().sum(-1)
-        return torch.clamp(q2[:, None] + v2 - 2.0 * dot, min=0.0)
-    return _finish(space, dot, None, None, q_aux[:, None], v_aux)
+        q2 = _sq_norm(queries, quantization)[:, None]
+        v2 = _sq_norm(blocks, quantization)
+    return _finish(space, dot, q2, v2, q_aux[:, None], v_aux)
 
 
 def prepare_queries(

@@ -30,12 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vector_store_tpu.core.types import Quantization, SpaceType
+from vector_store_tpu_torch.core.types import Quantization, SpaceType
 from vector_store_tpu_torch.ops import kernels
 
 LANES = 128
 INVALID_BIAS = 1e30  # b for dead rows
 INVALID_CUTOFF = 1e29  # rank values at or above this are empty candidates
+FLOAT_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 
 
 def block_rows_for(dp: int) -> int:
@@ -50,14 +51,24 @@ def block_rows_for(dp: int) -> int:
 
 
 def check_scan_inputs(
-    queries: torch.Tensor, vectors: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+    queries: torch.Tensor,
+    vectors: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    i8_rows: bool = False,
 ) -> None:
-    """The kernels' contract: one device, one float storage dtype, (a, b)
-    f32 per row, contiguous rows padded to a multiple of 8 elements."""
-    if queries.dtype not in kernels.DTYPE_CODES or vectors.dtype != queries.dtype:
+    """The kernels' contract: one device, one float storage dtype shared by
+    queries and rows (or, with ``i8_rows``, int8 rows scanned by bf16
+    queries), (a, b) f32 per row, contiguous rows padded to a multiple of 8
+    elements."""
+    same_float = queries.dtype == vectors.dtype and queries.dtype in FLOAT_DTYPES
+    i8_pair = i8_rows and vectors.dtype == torch.int8 and queries.dtype == torch.bfloat16
+    if not (same_float or i8_pair):
         raise TypeError(
             f"queries {queries.dtype} and vectors {vectors.dtype} must share "
             "one of float32/float16/bfloat16"
+            + (", or be bfloat16 queries over int8 rows" if i8_rows else "")
         )
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError("rank coefficients a and b must be float32")

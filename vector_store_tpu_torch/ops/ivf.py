@@ -3,7 +3,9 @@
 Counterpart of vector_store_tpu/ops/ivf.py:
 
 1. k-means clusters the stored rows; storage is laid out cluster-major
-   ([nlist * cmax, Dp], each cluster padded to ``cmax`` rows).
+   ([nlist * cmax, Dp], each cluster padded to ``cmax`` rows). I8 rows are
+   scanned by true-scale bf16 queries, with the 127x storage scale folded
+   into the rank coefficients by the engine.
 2. A search batch scores all centroids with one matrix product and picks
    ``nprobe`` clusters per query.
 3. The (query, cluster) pairs are regrouped by cluster (a stable sort and
@@ -14,11 +16,14 @@ Counterpart of vector_store_tpu/ops/ivf.py:
 
 The probe, regroup and merge are plain PyTorch, as they were XLA outside
 the Pallas kernel. ``grouped_scan`` takes its plain version for CPU
-tensors and launches csrc/grouped_scan.cu for CUDA tensors.
+tensors and launches csrc/grouped_scan.cu for CUDA tensors, with ``g``
+clusters per CUDA block (the Pallas kernel's g clusters per grid step,
+kernel 4 of the JAX package's scripts/ivf_stage_opt2.py).
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -85,7 +90,7 @@ def _affinity(xb: torch.Tensor, cent: torch.Tensor, spherical: bool) -> torch.Te
 
 
 def kmeans_step(
-    x: torch.Tensor,  # [N, Dp] float storage dtype
+    x: torch.Tensor,  # [N, Dp] storage dtype (I8: the raw int8 codes)
     w: torch.Tensor | None,  # [N] f32 weights (None = all 1)
     cent: torch.Tensor,  # [nlist, Dp] f32
     *,
@@ -204,7 +209,23 @@ def ivf_layout(
     return torch.where(placed2, pos2, pos), overflow & ~placed2
 
 
-# -- grouped scan (kernel 2) ------------------------------------------------------
+# -- grouped scan (kernels 2 and 4) ----------------------------------------------
+
+
+def choose_g() -> int:
+    """Clusters per CUDA block of the grouped scan.
+
+    On the TPU a grid step had a fixed cost that g clusters per step
+    amortised, and _choose_g took the largest g its VMEM budget allowed.
+    On the H100 the blocks run in parallel and g only trades the block
+    count for the work of each block. The rule is the g sweep of
+    chip_smoke.py at two shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+    §5): at the stage ablation's (BF16 nlist 2048 x cmax 1024, s 128)
+    g = 1 won in both runs (3.039 against 3.104 / 3.157 / 3.276 ms at
+    g = 2 / 4 / 8 in the first), and at the global smoke's (F32 nlist
+    2048 x cmax 768, s 32) no g > 1 beat the run-to-run spread of g = 1.
+    So one cluster per block, at every shape."""
+    return 1
 
 
 def grouped_scan_plain(
@@ -217,7 +238,9 @@ def grouped_scan_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: per slot and lane, the smallest
     rank among the slot's cluster rows at that lane and its absolute row.
-    Returns (rank [nlist*s, 128] f32, row [nlist*s, 128] i32)."""
+    Queries and rows may differ in dtype (bf16 queries over I8 rows); both
+    are taken in f32. Returns (rank [nlist*s, 128] f32, row [nlist*s, 128]
+    i32)."""
     dp = vectors.shape[1]
     nlist = vectors.shape[0] // cmax
     q = queries_grouped.float().view(nlist, s, dp)
@@ -238,11 +261,14 @@ def grouped_scan(
     b: torch.Tensor,
     s: int,
     cmax: int,
+    g: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(slot, lane) minimum rank over the slot's cluster; see the
-    module docstring. CPU tensors take the plain version, CUDA tensors the
-    kernel."""
-    check_scan_inputs(queries_grouped, vectors, a, b)
+    module docstring. ``g`` clusters per CUDA block (None: ``choose_g``)
+    must divide nlist; the result does not depend on it. Rows are float
+    with queries of their dtype, or int8 (I8 storage) with bf16 queries.
+    CPU tensors take the plain version, CUDA tensors the kernel."""
+    check_scan_inputs(queries_grouped, vectors, a, b, i8_rows=True)
     npos, dp = vectors.shape
     nlist = npos // cmax
     if cmax % LANES or npos != nlist * cmax or queries_grouped.shape[0] != nlist * s:
@@ -251,6 +277,10 @@ def grouped_scan(
             f"(a multiple of {LANES}), queries {queries_grouped.shape[0]} "
             f"rows for s {s}"
         )
+    if g is None:
+        g = choose_g()
+    if g < 1 or nlist % g:
+        raise ValueError(f"g = {g} clusters per block must divide nlist = {nlist}")
     if vectors.device.type == "cpu":
         return grouped_scan_plain(queries_grouped, vectors, a, b, s, cmax)
     require_cuda(vectors)
@@ -260,14 +290,18 @@ def grouped_scan(
         kernels.launch(
             "vst_grouped_scan",
             [queries_grouped, vectors, a, b, rank, row],
-            [nlist, s, cmax, dp, kernels.DTYPE_CODES[vectors.dtype]],
+            [nlist, s, cmax, dp, kernels.DTYPE_CODES[vectors.dtype], g],
         )
         with kernels.count_lock:
             grouped_scan.launches += 1
+            grouped_scan.launches_by[str(vectors.dtype).removeprefix("torch."), g] += 1
     return rank, row
 
 
 grouped_scan.launches = 0
+# (storage dtype name, g) -> launches: the I8 instantiation and g > 1
+# (kernel 4) are counted apart from the float scan at g = 1
+grouped_scan.launches_by = collections.Counter()
 
 
 # -- search ------------------------------------------------------------------------
@@ -336,7 +370,6 @@ def ivf_candidates(
     i32: live (query, cluster) pairs that lost their cluster's slot race
     and were not scanned; the engine re-dispatches those queries)."""
     nlist = vectors.shape[0] // cmax
-    nq = queries.shape[0]
     nprobe = min(nprobe, nlist)
     probes = ivf_probe(centroids, queries, q_live, nprobe=nprobe, spherical=spherical)
     qtab, filled, row_of_pair = regroup_pairs(probes, nlist=nlist, s=s)
@@ -346,8 +379,23 @@ def ivf_candidates(
     rank_out, row_out = grouped_scan(
         queries[qtab].contiguous(), vectors, a, b, s=s, cmax=cmax
     )
-    rank_out = torch.where(filled[:, None], rank_out, INVALID_BIAS)
+    best_rank, best_pos = merge_candidates(rank_out, row_out, filled, row_of_pair, k=k)
+    return best_rank, best_pos, dropped
 
+
+def merge_candidates(
+    rank_out: torch.Tensor,  # [nlist*s, 128] f32 per-slot candidates
+    row_out: torch.Tensor,  # [nlist*s, 128] i32 their cluster-major rows
+    filled: torch.Tensor,  # [nlist*s] bool
+    row_of_pair: torch.Tensor,  # [B, nprobe] slot row or -1
+    *,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each query's nprobe * 128 candidates -> exact top-k (rank [B, k] f32
+    ascending, pos [B, k] i32 or -1). Only the winners' rows are gathered
+    from ``row_out``."""
+    nq, nprobe = row_of_pair.shape
+    rank_out = torch.where(filled[:, None], rank_out, INVALID_BIAS)
     safe_row = torch.clamp(row_of_pair, min=0)  # [B, nprobe]
     cand = torch.where(
         (row_of_pair >= 0)[:, :, None], rank_out[safe_row], INVALID_BIAS
@@ -360,4 +408,4 @@ def ivf_candidates(
         best_rank = torch.nn.functional.pad(best_rank, (0, k - kk), value=INVALID_BIAS)
         best_pos = torch.nn.functional.pad(best_pos, (0, k - kk), value=-1)
     best_pos = torch.where(best_rank < INVALID_CUTOFF, best_pos, -1)
-    return best_rank, best_pos, dropped
+    return best_rank, best_pos

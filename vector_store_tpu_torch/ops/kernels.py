@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ctypes. The build
 happens at first use (never at import: a CPU-only installation imports
 every module of the port) into ``vector_store_tpu_torch/_build/``, keyed by
@@ -30,13 +31,15 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# storage dtype -> csrc/rank_scan.cuh DType (int8: I8 rows, scanned by bf16
+# queries in the grouped scan only)
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3}
 
 # entry point -> (pointer arguments, int arguments incl. the device index);
 # the stream comes last
 _ENTRY_POINTS = {
     "vst_fused_scan": (6, 6),
-    "vst_grouped_scan": (6, 6),
+    "vst_grouped_scan": (6, 7),
     "vst_partition_scan": (7, 6),
 }
 
@@ -62,6 +65,41 @@ def _nvcc() -> str:
     )
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands side by side; raise with the first failure's
+    output; return each command's stderr."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for c, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode} ({c[-1]}):\n{err}")
+    return [err for _, err in outs]
+
+
+def _build(sources: list[Path], so: Path) -> str:
+    """Compile each source to an object, all at once, then link them into
+    ``so`` (written under a temporary name, then moved into place); return
+    the compiler's resource report (-Xptxas -v)."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
+    try:
+        report = _run_all([
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)
+        ])
+        tmp = so.with_name(f"{so.name}.{tag}")
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(report)
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from ``csrc/`` on first use."""
     global _lib, build_seconds, ptxas_report
@@ -76,21 +114,9 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libvst_kernels_{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [
-                _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                "-o", str(tmp), *map(str, sources),
-            ]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {res.returncode}:\n{res.stderr}"
-                )
+            ptxas_report = _build(sources, so)
             build_seconds = time.perf_counter() - t0
-            ptxas_report = res.stderr
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
             fn = getattr(lib, name)

@@ -26,12 +26,12 @@ from dataclasses import dataclass
 import torch
 from aiohttp import web
 
-from vector_store_tpu.db import Db
-from vector_store_tpu.service.config import Config, ConfigManager, load_config
-from vector_store_tpu.service.indexes import Indexes
-from vector_store_tpu.service.internals import Internals
-from vector_store_tpu.service.metrics import Metrics
-from vector_store_tpu.service.node_state import NodeState
+from vector_store_tpu_torch.db import Db
+from vector_store_tpu_torch.service.config import Config, ConfigManager, load_config
+from vector_store_tpu_torch.service.indexes import Indexes
+from vector_store_tpu_torch.service.internals import Internals
+from vector_store_tpu_torch.service.metrics import Metrics
+from vector_store_tpu_torch.service.node_state import NodeState
 from vector_store_tpu_torch.http.routes import AppState, build_app
 from vector_store_tpu_torch.service.engine import Engine
 from vector_store_tpu_torch.service.memory import MemoryGovernor
@@ -86,8 +86,8 @@ def make_scylla_db(config: Config, metrics=None, internals=None):
     package (reference db.rs:258-367 session actor)."""
     import ssl as ssl_mod
 
-    from vector_store_tpu.db.cql.session import CqlSession
-    from vector_store_tpu.db.scylla import ScyllaDb
+    from vector_store_tpu_torch.db.cql.session import CqlSession
+    from vector_store_tpu_torch.db.scylla import ScyllaDb
 
     password = None
     if config.scylladb_password_file:
@@ -132,7 +132,7 @@ async def build_service(
     metrics = Metrics()
     indexes = Indexes()
 
-    from vector_store_tpu.service.worker import Worker
+    from vector_store_tpu_torch.service.worker import Worker
 
     worker = Worker(threads=config.threads)
     worker.install_as_default(asyncio.get_running_loop())
@@ -204,7 +204,7 @@ async def serve(
 ) -> Service:
     """Build the service AND bind the HTTP listener(s): plain or TLS main
     endpoint plus the optional mTLS endpoint (http/server.py)."""
-    from vector_store_tpu.http.server import HttpServer
+    from vector_store_tpu_torch.http.server import HttpServer
 
     service = await build_service(db, config, device)
     http_server = HttpServer(service.app, service.config)
@@ -217,11 +217,10 @@ async def main() -> None:
     # clap-parity: the only CLI flag is --version (reference main.rs:20-22)
     import sys
 
-    import vector_store_tpu
     import vector_store_tpu_torch
 
     if "--version" in sys.argv:
-        print(f"{vector_store_tpu.SERVICE_NAME} {vector_store_tpu_torch.__version__}")
+        print(f"{vector_store_tpu_torch.SERVICE_NAME} {vector_store_tpu_torch.__version__}")
         return
     logging.basicConfig(level=logging.INFO)
     config_manager = ConfigManager()
@@ -231,7 +230,7 @@ async def main() -> None:
     # VECTOR_STORE_FAKE_DB=true boots the in-memory fake instead of a
     # ScyllaDB cluster (demos / tests without a cluster)
     if os.environ.get("VECTOR_STORE_FAKE_DB", "").lower() == "true":
-        from vector_store_tpu.db.fake import FakeDb
+        from vector_store_tpu_torch.db.fake import FakeDb
 
         db = FakeDb()
     else:

@@ -12,17 +12,17 @@ import logging
 
 import torch
 
-from vector_store_tpu.core.types import IndexKey, IndexMetadata
-from vector_store_tpu.db import Db
-from vector_store_tpu.service.indexes import (
+from vector_store_tpu_torch.core.types import IndexKey, IndexMetadata
+from vector_store_tpu_torch.db import Db
+from vector_store_tpu_torch.service.indexes import (
     FtsIndexEntry,
     Indexes,
     VsIndexEntry,
 )
-from vector_store_tpu.service.monitor_items import MonitorItems
-from vector_store_tpu.service.node_state import IndexStatus, NodeState
+from vector_store_tpu_torch.service.monitor_items import MonitorItems
+from vector_store_tpu_torch.service.node_state import IndexStatus, NodeState
 from vector_store_tpu_torch.service.vs_index import VsIndexActor
-from vector_store_tpu.table import Table
+from vector_store_tpu_torch.table import Table
 
 logger = logging.getLogger(__name__)
 
@@ -108,7 +108,7 @@ class Engine:
             )
             self.indexes.insert_vs(key, entry)
         else:
-            from vector_store_tpu.service.fts_index import FtsIndexActor
+            from vector_store_tpu_torch.service.fts_index import FtsIndexActor
 
             actor = FtsIndexActor(metadata, table, metrics=self.metrics)
             actor.start()

@@ -8,7 +8,7 @@ from __future__ import annotations
 import asyncio
 import logging
 
-from vector_store_tpu.core.types import (
+from vector_store_tpu_torch.core.types import (
     DbCustomIndex,
     DbIndexKind,
     IndexMetadata,
@@ -16,10 +16,10 @@ from vector_store_tpu.core.types import (
     IndexOptionsVs,
     IndexVersion,
 )
-from vector_store_tpu.core.types import Dimensions
-from vector_store_tpu.db import Db
+from vector_store_tpu_torch.core.types import Dimensions
+from vector_store_tpu_torch.db import Db
 from vector_store_tpu_torch.service.engine import Engine
-from vector_store_tpu.service.node_state import NodeState
+from vector_store_tpu_torch.service.node_state import NodeState
 
 logger = logging.getLogger(__name__)
 

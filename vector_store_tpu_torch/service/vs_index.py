@@ -18,8 +18,8 @@ per kernel launch, so the actor's core is a micro-batching loop:
   exact host scan;
 - adds are dropped when the memory governor says Cannot (usearch.rs:1156).
 
-Engine choice: global F32/F16/BF16 indexes get the IVF engine ("auto" or
-"ivf") or the flat engine ("flat"); local (per-partition) F32/F16/BF16
+Engine choice: global F32/F16/BF16/I8 indexes get the IVF engine ("auto"
+or "ivf") or the flat engine ("flat"); local (per-partition) F32/F16/BF16
 indexes always get the flat engine, whose partition directory serves a
 query naming its partition (the JAX package's choice). Every other kind
 raises NotImplementedError naming its ROADMAP.md entry; no other engine
@@ -38,12 +38,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vector_store_tpu.core.distance import Distance
-from vector_store_tpu.core.filters import Restriction
-from vector_store_tpu.core.ids import PartitionId, PrimaryId
-from vector_store_tpu.core.keys import PrimaryKey
-from vector_store_tpu.core.types import IndexMetadata, SpaceType
-from vector_store_tpu.table import (
+from vector_store_tpu_torch.core.distance import Distance
+from vector_store_tpu_torch.core.filters import Restriction
+from vector_store_tpu_torch.core.ids import PartitionId, PrimaryId
+from vector_store_tpu_torch.core.keys import PrimaryKey
+from vector_store_tpu_torch.core.types import IndexMetadata, Quantization, SpaceType
+from vector_store_tpu_torch.table import (
     AddDocument,
     AddVector,
     AddVectorBlock,
@@ -53,7 +53,7 @@ from vector_store_tpu.table import (
     RemoveValue,
     Table,
 )
-from vector_store_tpu.utils import hotpath
+from vector_store_tpu_torch.utils import hotpath
 from vector_store_tpu_torch.engine.flat import (
     GLOBAL_RESERVE_INCREMENT,
     LOCAL_RESERVE_INCREMENT,
@@ -86,10 +86,16 @@ def make_engine(
     """The device engine for one index, or NotImplementedError for what the
     port does not serve yet."""
     vs = metadata.vs_options
+    is_local = not metadata.partitioning.is_global
     if not ivf_supports(vs.space_type, vs.quantization):
         raise NotImplementedError(
             f"{vs.quantization.name} storage / {vs.space_type.name} distance is "
-            "not ported yet (ROADMAP.md, port queue: I8 storage, B1/Hamming)"
+            "not ported yet (ROADMAP.md, port queue: B1/Hamming)"
+        )
+    if is_local and vs.quantization is Quantization.I8:
+        raise NotImplementedError(
+            "local (per-partition) I8 indexes are not ported yet (ROADMAP.md, "
+            "port queue: local I8 and B1/Hamming)"
         )
     if engine_kind not in ("auto", "ivf", "flat"):
         raise NotImplementedError(
@@ -97,7 +103,6 @@ def make_engine(
             "graph engine, sharded engines, simulator/opensearch)"
         )
     rescoring = vs.rescoring is not False
-    is_local = not metadata.partitioning.is_global
     if engine_kind == "flat" or is_local:
         return FlatDeviceIndex(
             int(vs.dimensions),
@@ -105,6 +110,7 @@ def make_engine(
             quantization=vs.quantization,
             device=device,
             reserve_increment=LOCAL_RESERVE_INCREMENT if is_local else GLOBAL_RESERVE_INCREMENT,
+            **({} if vs.oversampling is None else {"oversample": math.ceil(vs.oversampling)}),
             rescoring=rescoring,
         )
     # expansion_search plays the nprobe role (reference ef_search 64)
