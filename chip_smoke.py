@@ -11,7 +11,8 @@ failure:
 2. build: the scan kernels of csrc/ compiled with nvcc for sm_90a.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes: the fused scan over 1,000,000 x 128 rows (capacity
-   rounded up to the scan block) with 1024 queries, F32 and BF16; the
+   rounded up to the scan block) with 1024 queries, F32 (CUDA cores) and
+   BF16 (tensor cores), an entry each; the
    grouped scan over nlist 2048 x cmax 768 with the slot budget of a
    1024-query batch at nprobe 32, F32 and BF16; the partition scan over
    the partition-1000k mirror (P_cap 2048 x pmax 1024 positions, ~5%
@@ -21,7 +22,9 @@ failure:
    global smoke's (F32, nlist 2048 x cmax 768, s 32); and the I8 grouped
    scan (int8 rows, bf16 queries) at the dbpedia-i8 main region's shape
    (nlist 2048 x cmax 640, Dp 1536, s 32: what the engine picks for 1M
-   rows and a 1024-query batch at nprobe 32). Ranks agree within
+   rows and a 1024-query batch at nprobe 32); and both scans, small, at
+   Dp 3072 and at their tail shapes (row lengths 8 mod 16, query tiles cut
+   short, cmax 384 and 640, a group with no live row). Ranks agree within
    1e-4 * (1 + |r|); positions are equal except where the kernel's row
    ties the plain winner within that tolerance in the same group. Median
    times over CUDA events after warm-up, beside each kernel's bound (the
@@ -40,7 +43,11 @@ failure:
    128-d rows; ANN requests with 64 in flight, recall@10 against exact f32
    ground truth computed on the card (>= 0.90), self-queries and one CDC
    upsert found first at distance 0. The fused and grouped scans' launch
-   counts are reset before and read after this phase, and must be > 0.
+   counts are reset before and read after the requests, and must be > 0.
+   Then the same phase again as a new service over the same rows stored
+   as BF16: its searches launch the scans' tensor-core instantiations,
+   the fused one over the IVF delta's whole capacity, which is the shape
+   phase 3 holds it against its plain version at.
 6. local service: a new service over one local (per-partition) index, the
    partition-1000k configuration of vector_store_tpu/benchkit/scale.py
    (COSINE, BF16, SERVICE_ROWS clustered rows in 1025 partitions, row i in
@@ -69,9 +76,11 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import os
 import socket
 import statistics
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -91,6 +100,13 @@ RTOL = 1e-4
 I8_ROWS, I8_DIMS, I8_CENTERS = 1_000_000, 1536, 1024  # dbpedia-i8
 I8_RECALL_REFERENCE = 0.9594  # the JAX package's run of dbpedia-i8 (SCALE_RUNS.jsonl:21)
 G_SWEEP = (1, 2, 4, 8)
+# each kernel's time under the first scan core (csrc/rank_scan.cuh), before
+# the fused and grouped scans were redesigned for Hopper: ms at the same
+# shapes on an NVIDIA H100 80GB HBM3 at 700 W, copied from PERF.md section 5
+# (that core's last full smoke run), not measured by this script. Printed
+# beside this run's times in a [kernels] log line, never in the result
+PREV_MS = {"fused_scan": 11.236, "grouped_scan": 0.664, "partition_scan": 0.357, "grouped_scan_g": 3.173,
+           "grouped_scan_i8": 17.042}
 
 # the H100 SXM's published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -100,6 +116,14 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float16: 989e12, torch.bfloat16: 9
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"smoke check failed: {msg}")
+
+
+def host_line(before: str) -> None:
+    """What the process carries into a phase: the service phases are bound
+    by this one Python process, so their readings depend on it."""
+    cpu = os.times()
+    print(f"[host] before {before}: {len(gc.get_objects()):,} gc-tracked objects, {threading.active_count()} threads, "
+          f"process CPU {cpu.user + cpu.system:.1f} s, {os.cpu_count()} cores", flush=True)
 
 
 def card_line() -> str:
@@ -188,10 +212,7 @@ def kernel_phase(device) -> list[dict]:
     b = torch.zeros((cap,), device=device)
     b[SERVICE_ROWS:] = fs.INVALID_BIAS  # rows past the index: empty slots
     b[torch.from_numpy(rng.random(cap) < 0.01).to(device)] = fs.INVALID_BIAS  # removed rows
-    entry = {"name": "fused_scan", "route": "cuda", "source": "vector_store_tpu_torch/csrc/fused_scan.cu",
-             "replaces": "vector_store_tpu/ops/pallas_scan.py:136"}
-    errs, times = [], {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, name in ((torch.float32, "fused_scan"), (torch.bfloat16, "fused_scan_bf16")):
         q, v = q32.to(dt), v32.to(dt)
         rank, pos = fs.fused_scan(q, v, a, b, block)
         prank, ppos = fs.fused_scan_plain(q, v, a, b, block)
@@ -204,19 +225,20 @@ def kernel_phase(device) -> list[dict]:
                 return (col // fs.LANES) * block + col % fs.LANES
             return (rows // block) * block + rows % fs.LANES
 
-        errs.append(compare(f"fused_scan/{dt}", rank, pos, prank, ppos, exact, group))
-        times[dt] = (
-            median_ms(lambda: fs.fused_scan(q, v, a, b, block)),
-            median_ms(lambda: fs.fused_scan_plain(q, v, a, b, block), reps=5),
-            median_ms(lambda: torch.matmul(q, v.T), reps=5),
-        )
-        print(f"[kernels] fused_scan {dt} {cap}x{DIMS} B={nq}: kernel {times[dt][0]:.3f} ms, "
-              f"plain {times[dt][1]:.3f} ms, max |rank err| {errs[-1]:.3g} (tolerance {RTOL:g} * (1 + |r|))", flush=True)
-    del v32, v, prank, ppos
-    entry.update(max_abs_err=max(errs), ms=times[torch.float32][0], plain_ms=times[torch.float32][1],
-                 library_ms=None, product_only_ms=times[torch.float32][2],
-                 **scan_bound(cap, nq, nq * cap, DIMS, torch.float32, torch.float32, nq * (cap // block) * fs.LANES))
-    out.append(entry)
+        err = compare(f"fused_scan/{dt}", rank, pos, prank, ppos, exact, group)
+        del rank, pos, prank, ppos
+        entry = {"name": name, "route": "cuda", "source": "vector_store_tpu_torch/csrc/fused_scan.cu",
+                 "replaces": "vector_store_tpu/ops/pallas_scan.py:136", "max_abs_err": err,
+                 "ms": median_ms(lambda: fs.fused_scan(q, v, a, b, block)),
+                 "plain_ms": median_ms(lambda: fs.fused_scan_plain(q, v, a, b, block), reps=5),
+                 "library_ms": None, "product_only_ms": median_ms(lambda: torch.matmul(q, v.T), reps=5),
+                 **scan_bound(cap, nq, nq * cap, DIMS, dt, dt, nq * (cap // block) * fs.LANES)}
+        print(f"[kernels] fused_scan {dt} {cap}x{DIMS} B={nq}: kernel {entry['ms']:.3f} ms, plain "
+              f"{entry['plain_ms']:.3f} ms, product only {entry['product_only_ms']:.3f} ms, bound "
+              f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), max |rank err| {err:.3g} "
+              f"(tolerance {RTOL:g} * (1 + |r|))", flush=True)
+        out.append(entry)
+    del v32, v, q
 
     # -- kernel 2: grouped scan at the IVF shape ------------------------------
     nlist, cmax = 2048, 768
@@ -255,7 +277,62 @@ def kernel_phase(device) -> list[dict]:
     out.append(partition_kernel(device, rng))
     out.append(grouped_g_sweep(device))
     out.append(grouped_i8_kernel(device))
+    edge_shapes(device)
     return out
+
+
+def edge_shapes(device) -> None:
+    """Both redesigned scans, small, against their plain versions where
+    their cores could go wrong: Dp 3072 (a block's shared memory must not
+    grow with the row length), row lengths that are 8 mod 16 or shorter
+    than a K-slice, query tiles cut short (nq 1 and 17, s 24 and 20), cmax
+    384 and 640, and a group with no live row, which must return its
+    first rows at INVALID_BIAS."""
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    floats = (torch.float32, torch.float16, torch.bfloat16)
+    worst = 0.0
+    # (row length, queries, rows a block, blocks)
+    for dp, nq, block, nblk in ((3072, 40, 1024, 2), (136, 1, 384, 3), (72, 17, 640, 3), (48, 70, 128, 4)):
+        for dt in floats:
+            v, q = unit_rows_on(device, gen, nblk * block, dp, dt), unit_rows_on(device, gen, nq, dp, dt)
+            a, b = cosine_coeffs(v, gen)
+            b[block : 2 * block] = fs.INVALID_BIAS  # block 1 has no live row
+            rank, pos = fs.fused_scan(q, v, a, b, block)
+            prank, ppos = fs.fused_scan_plain(q, v, a, b, block)
+
+            def exact(qi, rows, q=q, v=v, a=a, b=b):
+                return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + b[rows]
+
+            def group(qi, col, rows=None, block=block):
+                if rows is None:
+                    return (col // fs.LANES) * block + col % fs.LANES
+                return (rows // block) * block + rows % fs.LANES
+
+            worst = max(worst, compare(f"fused_scan/edge/{dt}/Dp={dp}/B={nq}", rank, pos, prank, ppos, exact, group))
+            dead = slice(fs.LANES, 2 * fs.LANES)
+            check(torch.equal(pos[:, dead], ppos[:, dead]) and bool((rank[:, dead] == fs.INVALID_BIAS).all()),
+                  f"fused_scan/edge/{dt}/Dp={dp}: a dead block did not return its first rows at INVALID_BIAS")
+    # (row length, slots a cluster, cmax, clusters, g); int8 rows pad to 16
+    for dp, s, cmax, nlist, g in ((3072, 32, 640, 4, 1), (136, 24, 384, 6, 2), (72, 20, 640, 6, 3), (48, 100, 128, 8, 4)):
+        for dt in floats + (torch.int8,):
+            dpp = -(-dp // 16) * 16 if dt is torch.int8 else dp
+            v = unit_rows_on(device, gen, nlist * cmax, dpp, dt)
+            q = unit_rows_on(device, gen, nlist * s, dpp, torch.bfloat16 if dt is torch.int8 else dt)
+            a, b = cosine_coeffs(v, gen)
+            b[cmax : 2 * cmax] = fs.INVALID_BIAS  # cluster 1 has no live row
+            rank, pos = ivf.grouped_scan(q, v, a, b, s, cmax, g=g)
+            prank, ppos = ivf.grouped_scan_plain(q, v, a, b, s, cmax)
+            worst = max(worst, compare(f"grouped_scan/edge/{dt}/Dp={dpp}/s={s}", rank, pos, prank, ppos,
+                                       *grouped_oracle(q, v, a, b, s, cmax)))
+            dead = slice(s, 2 * s)
+            check(torch.equal(pos[dead], ppos[dead]) and bool((rank[dead] == fs.INVALID_BIAS).all()),
+                  f"grouped_scan/edge/{dt}/Dp={dpp}: a dead cluster did not return its first rows at INVALID_BIAS")
+    print(f"[kernels] edge shapes (Dp 3072; Dp 136, 72, 48; nq 1, 17, 70; s 24, 20, 100; cmax 384, 640, 128; a dead "
+          f"group), F32/F16/BF16 and int8 rows: all within tolerance, max |rank err| {worst:.3g}", flush=True)
 
 
 def grouped_oracle(q, v, a, b, s, cmax):
@@ -534,9 +611,12 @@ class Http:
             await asyncio.sleep(0.2)
 
 
-async def service_phase(device, card: str) -> dict:
+async def service_phase(device, card: str, storage: str = "F32") -> dict:
+    """Phase 5: one global index (COSINE, ``storage`` rows) served over
+    HTTP; returns the scans' launches during the requests."""
     import aiohttp
 
+    from vector_store_tpu_torch.core.types import Quantization
     from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
     from vector_store_tpu_torch.service.config import Config
     from vector_store_tpu_torch.ops import fused_scan as fs
@@ -554,9 +634,11 @@ async def service_phase(device, card: str) -> dict:
 
     db = FakeDb()
     db.add_table(FakeTable("ks", "tbl", ("pk",)))
-    metadata = make_vs_metadata(dimensions=DIMS)  # COSINE, F32, global
+    metadata = make_vs_metadata(dimensions=DIMS, quantization=Quantization[storage])  # COSINE, global
     db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row((i,), data[i], 100) for i in range(n))))
     port = free_port()
+    tag = "[service]" if storage == "F32" else f"[service {storage}]"
+    scan_dtype = {"F32": "float32", "BF16": "bfloat16"}[storage]
 
     t0 = time.perf_counter()
     service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
@@ -575,13 +657,14 @@ async def service_phase(device, card: str) -> dict:
             settle_s = time.perf_counter() - t0 - ingest_s
             build_s = sum(sec for phase, sec in engine.maintain_log)
             rebuilds = sum(1 for phase, _ in engine.maintain_log if phase == "swap")
-            print(f"[service] {n} rows ingested in {ingest_s:.1f} s; IVF nlist={engine.nlist} "
+            print(f"{tag} {n} rows ingested in {ingest_s:.1f} s; IVF nlist={engine.nlist} "
                   f"cmax={engine.cmax} main={engine._main_rows} delta={engine._delta.size}; "
                   f"settled {settle_s:.1f} s later", flush=True)
             check(engine._main_rows >= 0.8 * n, "the IVF main region holds under 80% of the rows")
 
             # -- the main path, counted ------------------------------------
             fs.fused_scan.launches = 0
+            fs.fused_scan.launches_by.clear()
             ivf.grouped_scan.launches = 0
             ivf.grouped_scan.launches_by.clear()
             sem = asyncio.Semaphore(IN_FLIGHT)
@@ -598,7 +681,7 @@ async def service_phase(device, card: str) -> dict:
             got = await asyncio.gather(*(one(q) for q in queries))
             wall = time.perf_counter() - t1
             recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt)]))
-            print(f"[service] recall@{K} {recall:.4f} over {N_REQUESTS} requests", flush=True)
+            print(f"{tag} recall@{K} {recall:.4f} over {N_REQUESTS} requests", flush=True)
             check(recall >= RECALL_MIN, f"recall@{K} {recall:.4f} < {RECALL_MIN}")
 
             for i in rng.choice(n, size=16, replace=False):
@@ -611,11 +694,13 @@ async def service_phase(device, card: str) -> dict:
             res = await ann(new, 3)
             check(res["primary_keys"]["pk"][0] == n and abs(res["distances"][0]) <= 1e-6,
                   f"CDC row query returned {res}")
-            launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan": ivf.grouped_scan.launches}
-            print(f"[service] launches during the main path: {launches}", flush=True)
+            launches = {"fused_scan": fs.fused_scan.launches_by[scan_dtype],
+                        "grouped_scan": sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items()
+                                            if dt == scan_dtype)}
+            print(f"{tag} launches during the main path ({scan_dtype} rows): {launches}", flush=True)
             check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
             print(
-                f"[service] smoke readings on {card}: ingest {ingest_s:.1f} s for {n} rows, "
+                f"{tag} smoke readings on {card}: ingest {ingest_s:.1f} s for {n} rows, "
                 f"device build slices {build_s:.1f} s over {rebuilds} builds, "
                 f"{N_REQUESTS / wall:.0f} QPS and p50 {1e3 * statistics.median(lat):.1f} ms "
                 f"at {IN_FLIGHT} in flight (client in the same process)",
@@ -878,18 +963,29 @@ def main() -> None:
     built = "a cached library" if kernels.build_seconds is None else f"nvcc {kernels.build_seconds:.1f} s"
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s ({built})", flush=True)
     for line in kernels.ptxas_report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Used " in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
 
     results = kernel_phase(device)
+    print("[kernels] before the redesign for Hopper (PERF.md section 5: the first scan core's last smoke run, same "
+          "shapes, NVIDIA H100 80GB HBM3, 700 W) -> this run: "
+          + ", ".join(f"{e['name']} {PREV_MS[e['name']]:.3f} -> {e['ms']:.3f} ms" for e in results
+                      if e["name"] in PREV_MS), flush=True)
     g_launches = stage_phase(device)
+    host_line("the F32 service")
     launches = asyncio.run(service_phase(device, card))
     launches["grouped_scan_g"] = g_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the BF16 service")
+    launches["fused_scan_bf16"] = asyncio.run(service_phase(device, card, "BF16"))["fused_scan"]
     gc.collect()  # each index leaves the card before the next one arrives
     torch.cuda.empty_cache()
+    host_line("the local service")
     launches["partition_scan"] = asyncio.run(local_phase(device, card))
     gc.collect()
     torch.cuda.empty_cache()
+    host_line("the I8 service")
     launches["grouped_scan_i8"] = asyncio.run(i8_phase(device, card))
     for entry in results:
         entry["launches"] = launches[entry["name"]]

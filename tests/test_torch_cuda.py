@@ -2,7 +2,10 @@
 
 These tests need an NVIDIA GPU with nvcc (the kernels build at first use)
 and skip elsewhere. The grouped scan runs at g = 1, 2, 4 and 8 clusters
-per block and over int8 rows (the I8 index). On a GPU machine run them with
+per block and over int8 rows (the I8 index); both scans also run at the
+tails their tensor-core and register-tiled cores must get right (a row
+length that is 8 mod 16, query tiles cut short, cmax 384 and 640, a group
+with no live row) and at Dp 3072. On a GPU machine run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -114,6 +117,90 @@ def test_grouped_scan_g_clusters_per_block(cuda, dtype, g):
     assert torch.equal(rank, rank1) and torch.equal(pos, pos1)
     with pytest.raises(ValueError, match="divide"):
         ivf.grouped_scan(qg, v, a, b, s, cmax, g=3)
+
+
+def _grouped_case(rng, cuda, dtype, nlist, cmax, s, d):
+    """Rows, queries and coefficients of a grouped scan; cluster 1 has no
+    live row. int8: I8 codes under bf16 queries, the scale folded into a."""
+    v = _rows(rng, nlist * cmax, d, cuda, torch.float32)
+    a = torch.full((nlist * cmax,), -1.0, device=cuda)
+    if dtype is torch.int8:
+        v = torch.clamp(torch.round(v * 127), -127, 127).to(torch.int8)
+        a = -1.0 / v.float().norm(dim=1)
+    else:
+        v = v.to(dtype)
+    qg = _rows(rng, nlist * s, d, cuda, torch.bfloat16 if dtype is torch.int8 else dtype)
+    b = torch.zeros(nlist * cmax, device=cuda)
+    b[::5] = fused_scan.INVALID_BIAS
+    b[cmax : 2 * cmax] = fused_scan.INVALID_BIAS
+    return qg, v, a, b
+
+
+def _grouped_full(qg, v, a, b, nlist, s, cmax):
+    full = torch.full((nlist * s, nlist * cmax), float("inf"), device=v.device)
+    for c in range(nlist):
+        rows = slice(c * cmax, (c + 1) * cmax)
+        full[c * s : (c + 1) * s, rows] = a[rows] * (qg[c * s : (c + 1) * s].float() @ v[rows].float().T) + b[rows]
+    return full
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,nq,block", [(72, 33, 384), (48, 70, 128), (136, 16, 640)])
+def test_fused_scan_tails(cuda, dtype, d, nq, block):
+    """Row lengths that are 8 mod 16 or shorter than a K-slice, query tiles
+    cut short, blocks that are not whole 256- or 512-row passes, and a
+    block with no live row (its first rows come back at 1e30)."""
+    rng = np.random.default_rng(d + nq)
+    cap = 4 * block
+    v, q = _rows(rng, cap, d, cuda, dtype), _rows(rng, nq, d, cuda, dtype)
+    a = torch.full((cap,), -2.0, device=cuda)
+    b = torch.rand(cap, device=cuda)
+    b[::3] = fused_scan.INVALID_BIAS
+    b[block : 2 * block] = fused_scan.INVALID_BIAS
+    rank, pos = fused_scan.fused_scan(q, v, a, b, block)
+    prank, ppos = fused_scan.fused_scan_plain(q, v, a, b, block)
+    _assert_close_to_plain(rank, pos, prank, a * (q.float() @ v.float().T) + b)
+    dead = slice(fused_scan.LANES, 2 * fused_scan.LANES)
+    assert torch.equal(pos[:, dead], ppos[:, dead]) and bool((rank[:, dead] == fused_scan.INVALID_BIAS).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES + (torch.int8,))
+@pytest.mark.parametrize("d,s,cmax", [(72, 24, 384), (48, 20, 640), (200, 100, 128), (8, 1, 256)])
+def test_grouped_scan_tails(cuda, dtype, d, s, cmax):
+    rng = np.random.default_rng(d + s)
+    nlist = 6
+    if dtype is torch.int8:
+        d = -(-d // 16) * 16  # I8 rows pad to 16 codes: 80, 48, 208, 16
+    qg, v, a, b = _grouped_case(rng, cuda, dtype, nlist, cmax, s, d)
+    rank, pos = ivf.grouped_scan(qg, v, a, b, s, cmax, g=2)
+    prank, ppos = ivf.grouped_scan_plain(qg, v, a, b, s, cmax)
+    _assert_close_to_plain(rank, pos, prank, _grouped_full(qg, v, a, b, nlist, s, cmax))
+    dead = slice(s, 2 * s)  # cluster 1: every lane returns its first row at 1e30
+    assert torch.equal(pos[dead], ppos[dead]) and bool((rank[dead] == fused_scan.INVALID_BIAS).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_scan_at_dp_3072(cuda, dtype):
+    """A block's shared memory does not depend on the row length."""
+    rng = np.random.default_rng(3072)
+    cap, d, nq, block = 2048, 3072, 40, 1024
+    v, q = _rows(rng, cap, d, cuda, dtype), _rows(rng, nq, d, cuda, dtype)
+    a = torch.full((cap,), -2.0, device=cuda)
+    b = torch.rand(cap, device=cuda)
+    b[::9] = fused_scan.INVALID_BIAS
+    rank, pos = fused_scan.fused_scan(q, v, a, b, block)
+    prank, _ = fused_scan.fused_scan_plain(q, v, a, b, block)
+    _assert_close_to_plain(rank, pos, prank, a * (q.float() @ v.float().T) + b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES + (torch.int8,))
+def test_grouped_scan_at_dp_3072(cuda, dtype):
+    rng = np.random.default_rng(3073)
+    nlist, cmax, s, d = 4, 640, 32, 3072
+    qg, v, a, b = _grouped_case(rng, cuda, dtype, nlist, cmax, s, d)
+    rank, pos = ivf.grouped_scan(qg, v, a, b, s, cmax)
+    prank, _ = ivf.grouped_scan_plain(qg, v, a, b, s, cmax)
+    _assert_close_to_plain(rank, pos, prank, _grouped_full(qg, v, a, b, nlist, s, cmax))
 
 
 @pytest.mark.parametrize("nq", [3, 40])

@@ -122,3 +122,72 @@ def test_wrapper_checks_inputs_and_device():
     with pytest.raises(ValueError, match="no scan kernel"):
         fused_scan.fused_scan(*meta, BLOCK)
     assert fused_scan.fused_scan.launches == launches  # CPU never counts
+
+
+# -- the shapes the CUDA kernel's two cores must get right ---------------------
+# (row length, queries, rows a block, rows): row lengths that are 8 mod 16 or
+# a single 8-element chunk, query tiles cut short (1, 17), and Dp 3072
+
+TAILS = [(72, 1, 256, 1024), (136, 17, 256, 1024), (8, 3, 128, 512), (3072, 5, 128, 384)]
+TORCH_DTYPE = {Quantization.F32: torch.float32, Quantization.BF16: torch.bfloat16, Quantization.F16: torch.float16}
+
+
+def _tail_case(d, nq, block, n, quant):
+    """Unit rows and queries from numpy; block 1 has no live row."""
+    rng = np.random.default_rng(d + nq)
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)  # noqa: E731
+    vs = torch.from_numpy(unit(rng.normal(size=(n, d))).astype(np.float32)).to(TORCH_DTYPE[quant])
+    qs = torch.from_numpy(unit(rng.normal(size=(nq, d))).astype(np.float32)).to(TORCH_DTYPE[quant])
+    a = torch.full((n,), -2.0)
+    b = torch.from_numpy(rng.random(n).astype(np.float32))
+    b[torch.from_numpy(rng.random(n) < 0.2)] = fused_scan.INVALID_BIAS
+    b[block : 2 * block] = fused_scan.INVALID_BIAS
+    return vs, qs, a, b
+
+
+def _jax_padded(x: torch.Tensor, quant):
+    """Rows padded with zeros to the Pallas kernel's 128-lane width."""
+    from vector_store_tpu.ops.quantize import storage_dtype
+
+    arr = np.pad(x.float().numpy(), [(0, 0), (0, -x.shape[1] % 128)])
+    return jnp.asarray(arr, storage_dtype(to_jax(quant)))
+
+
+@pytest.mark.parametrize("quant", (Quantization.F32, Quantization.BF16))
+@pytest.mark.parametrize("d,nq,block,n", TAILS)
+def test_plain_matches_pallas_kernel_at_tail_shapes(d, nq, block, n, quant):
+    vs, qs, a, b = _tail_case(d, nq, block, n, quant)
+    rank, pos = fused_scan.fused_scan(qs, vs, a, b, block)  # CPU: plain version
+    paux = np.zeros((8, n), np.float32)
+    paux[0], paux[1] = a.numpy(), b.numpy()
+    jr, jo = jscan._fused_scan(
+        _jax_padded(qs, quant), _jax_padded(vs, quant), jnp.asarray(paux), block_rows=block, interpret=True
+    )
+    lanes = np.tile(np.arange(LANES), n // block)
+    base = np.repeat(np.arange(n // block) * block, LANES)
+    jpos = base + np.asarray(jo).astype(np.int64) + lanes
+    np.testing.assert_allclose(rank.numpy(), np.asarray(jr), rtol=RTOL, atol=RTOL)
+    full = a * (qs.float() @ vs.float().T) + b
+    ok = ~near_tie_mask(full, block) if block > LANES else np.ones(rank.shape, bool)
+    np.testing.assert_array_equal(pos.numpy()[ok], jpos[ok])
+    # the dead block: every lane returns its first row at INVALID_BIAS
+    dead = slice(LANES, 2 * LANES)
+    assert (rank[:, dead] == fused_scan.INVALID_BIAS).all()
+    np.testing.assert_array_equal(pos[:, dead].numpy(), np.broadcast_to(block + np.arange(LANES), (nq, LANES)))
+    np.testing.assert_array_equal(jpos[:, dead], pos[:, dead].numpy())
+
+
+@pytest.mark.parametrize("quant", (Quantization.F32, Quantization.F16, Quantization.BF16))
+def test_plain_matches_numpy_oracle_at_dp_3072(quant):
+    """A 3072-d index (the widest published embedding): the plain version
+    against float64 numpy on the stored values."""
+    d, nq, block, n = 3072, 4, 256, 512
+    vs, qs, a, b = _tail_case(d, nq, block, n, quant)
+    rank, pos = fused_scan.fused_scan(qs, vs, a, b, block)
+    full = a.double().numpy() * (qs.double().numpy() @ vs.double().numpy().T) + b.double().numpy()
+    grouped = full.reshape(nq, n // block, block // LANES, LANES)
+    want = grouped.min(axis=2).reshape(nq, -1)
+    np.testing.assert_allclose(rank.numpy(), want, rtol=1e-4, atol=1e-4)
+    won = np.take_along_axis(full, pos.numpy().astype(np.int64), axis=1)
+    np.testing.assert_allclose(won, want, rtol=1e-4, atol=1e-4)
+    assert ((pos.numpy() % LANES) == np.tile(np.arange(LANES), n // block)).all()

@@ -144,3 +144,94 @@ def test_kmeans_with_generator_finds_clusters():
         assert truth[labels == lbl].unique().numel() == 1
     top2 = ivf.kmeans_assign(x, cent, block=64, top2=True)
     assert top2.shape == (200, 2) and torch.equal(top2[:, 0], labels)
+
+
+# -- the shapes the CUDA kernel's two cores must get right ---------------------
+# (row length, slots a cluster, cmax, clusters): row lengths that are 8 mod 16,
+# a slot budget that is no power of two, cmax 384 and 640, and Dp 3072; int8
+# rows pad to 16 codes
+
+GROUPED_TAILS = [(72, 24, 384, 4), (136, 20, 640, 3), (8, 1, 128, 3), (3072, 8, 384, 2)]
+STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8}
+
+
+def _tail_region(d, s, cmax, nlist, storage):
+    """Unit rows and queries from numpy; cluster 1 has no live row. i8: the
+    I8 codes round(127 v) under bf16 queries, the scale folded into a."""
+    rng = np.random.default_rng(d + s)
+    unit = lambda x: x / np.linalg.norm(x, axis=1, keepdims=True)  # noqa: E731
+    if storage == "i8":
+        d = -(-d // 16) * 16
+    rows = torch.from_numpy(unit(rng.normal(size=(nlist * cmax, d))).astype(np.float32))
+    q = torch.from_numpy(unit(rng.normal(size=(nlist * s, d))).astype(np.float32))
+    a = torch.full((nlist * cmax,), -1.0)
+    if storage == "i8":
+        vs, qg = torch.round(rows * 127).to(torch.int8), q.to(torch.bfloat16)
+        a = -1.0 / vs.float().norm(dim=1)
+    else:
+        vs, qg = rows.to(STORAGE[storage]), q.to(STORAGE[storage])
+    b = torch.zeros(nlist * cmax)
+    b[torch.from_numpy(rng.random(nlist * cmax) < 0.2)] = fused_scan.INVALID_BIAS
+    b[cmax : 2 * cmax] = fused_scan.INVALID_BIAS
+    return vs, qg, a, b
+
+
+def _jax_rows(x: torch.Tensor):
+    """Rows padded with zeros to the Pallas kernel's 128-lane width, in
+    their own dtype."""
+    dt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.int8: jnp.int8}[x.dtype]
+    return jnp.asarray(np.pad(x.float().numpy(), [(0, 0), (0, -x.shape[1] % 128)]), dt)
+
+
+def _cluster_ranks(qg, vs, a, b, s, cmax, nlist):
+    return torch.stack(
+        [
+            a[c * cmax : (c + 1) * cmax] * (qg[c * s : (c + 1) * s].float() @ vs[c * cmax : (c + 1) * cmax].float().T)
+            + b[c * cmax : (c + 1) * cmax]
+            for c in range(nlist)
+        ]
+    )  # [nlist, s, cmax]
+
+
+@pytest.mark.parametrize("storage", ("f32", "bf16", "i8"))
+@pytest.mark.parametrize("d,s,cmax,nlist", GROUPED_TAILS)
+def test_plain_matches_pallas_kernel_at_tail_shapes(d, s, cmax, nlist, storage):
+    vs, qg, a, b = _tail_region(d, s, cmax, nlist, storage)
+    rank, pos = ivf.grouped_scan(qg, vs, a, b, s=s, cmax=cmax, g=1)  # CPU: plain
+    jr, jo = jivf._grouped_scan(_jax_rows(qg), _jax_rows(vs), _jpaux(a, b), s=s, cmax=cmax, interpret=True)
+    cluster = np.arange(nlist * s)[:, None] // s
+    jpos = cluster * cmax + np.asarray(jo).astype(np.int64) + np.arange(LANES)
+    np.testing.assert_allclose(rank.numpy(), np.asarray(jr), rtol=RTOL, atol=RTOL)
+    full = _cluster_ranks(qg, vs, a, b, s, cmax, nlist).view(nlist * s, cmax // LANES, LANES)
+    if cmax > LANES:
+        two = torch.topk(full, 2, dim=1, largest=False).values
+        ok = ((two[:, 1] - two[:, 0]).abs() > RTOL * (1 + two[:, 0].abs())).numpy()
+    else:
+        ok = np.ones(rank.shape, bool)
+    ok[s : 2 * s] = True  # the dead cluster's exact ties go to the first row on both sides
+    np.testing.assert_array_equal(pos.numpy()[ok], jpos[ok])
+    assert (rank[s : 2 * s] == fused_scan.INVALID_BIAS).all()
+    np.testing.assert_array_equal(pos[s : 2 * s].numpy(), np.broadcast_to(cmax + np.arange(LANES), (s, LANES)))
+
+
+@pytest.mark.parametrize("storage", ("f32", "bf16", "i8"))
+def test_plain_matches_numpy_oracle_at_dp_3072(storage):
+    d, s, cmax, nlist = 3072, 5, 256, 2
+    vs, qg, a, b = _tail_region(d, s, cmax, nlist, storage)
+    rank, pos = ivf.grouped_scan(qg, vs, a, b, s=s, cmax=cmax)
+    q64, v64 = qg.double().numpy().reshape(nlist, s, d), vs.double().numpy().reshape(nlist, cmax, d)
+    full = (
+        a.double().numpy().reshape(nlist, 1, cmax) * np.einsum("csd,crd->csr", q64, v64)
+        + b.double().numpy().reshape(nlist, 1, cmax)
+    ).reshape(nlist * s, cmax)
+    want = full.reshape(nlist * s, cmax // LANES, LANES).min(axis=1)
+    np.testing.assert_allclose(rank.numpy(), want, rtol=1e-4, atol=1e-4)
+    off = pos.numpy().astype(np.int64) - (np.arange(nlist * s)[:, None] // s) * cmax
+    assert ((off >= 0) & (off < cmax) & (off % LANES == np.arange(LANES))).all()
+    np.testing.assert_allclose(np.take_along_axis(full, off, axis=1), want, rtol=1e-4, atol=1e-4)
+
+
+def test_grouped_scan_refuses_int8_rows_not_padded_to_16():
+    vs, qg, a, b = _tail_region(16, 2, 128, 1, "i8")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ivf.grouped_scan(qg[:, :8].contiguous(), vs[:, :8].contiguous(), a, b, s=2, cmax=128)

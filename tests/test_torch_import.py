@@ -89,8 +89,9 @@ ALLOWED = {
         "vector_store_tpu_torch.ops.topk",
         "chip_smoke",
         "vector_store_tpu_torch.bench.ivf_stage",
+        "vector_store_tpu_torch.bench.scan_ablation",
     ],
-    ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation"],
+    ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation", "scan-ablation"],
 )
 def test_no_jax_in_sys_modules(modules):
     code = (

@@ -7,62 +7,102 @@
 // blk*block_rows + lane + 128*j of row block blk. Outputs, row-major
 // [nq, (cap/block_rows)*128]: the rank (f32) and the absolute row (i32).
 //
-// What bounds it on the H100: every (query, row) pair costs dp FMAs and
-// F32 storage must stay f32, so the scan runs on the CUDA cores (67 TFLOP/s
-// f32), not the tensor cores. Its intensity is B/2 op/byte for f32 rows
-// (2*B*dp operations per 4*dp bytes). At the slice's shape (1M x 128 f32,
-// 1024 queries) it does 2*1024*1M*128 = 262 GFLOP over 512 MB of vectors:
-// 512 op/byte, above the bf16 ridge of ~295 op/byte; a batch of a few
-// hundred queries (~150 op/byte at 300) sits below that ridge. Either way
-// it is far above the f32 CUDA-core ridge of 20 op/byte, so on the CUDA
-// cores it is compute-bound from B ~ 40 up. The grid puts the
-// query tiles of one row block next to each other (blockIdx.x), so the
-// 64 blocks that read the same rows run together and the rows come from
-// L2 after the first read: device memory sees the vectors about once.
-#include "rank_scan.cuh"
+// What bounds it on the H100: its operations. Every (query, row) pair
+// costs dp multiply-adds and every row is used by all nq queries: 2*nq/4
+// operations per byte of an F32 row, nq per byte of a 16-bit row. At the
+// flat-scan shape (1,015,808 x 128 rows, 1024 queries: 266 GFLOP) that is
+// 512 op/byte in F32, far above the CUDA cores' ridge of 20 (67 TFLOP/s
+// over 3.35 TB/s): about 4 ms of f32 FMAs against 0.16 ms of bytes. F32
+// storage must rank in full f32, so it stays on the CUDA cores
+// (vst::F32Scan: a 4-row x 16-query register tile per thread, so that the
+// FMA pipe and not shared memory limits the inner loop). F16 and BF16 rows
+// take the tensor cores (vst::TensorScan: wgmma with f32 accumulation):
+// 0.27 ms of operations at 989 TFLOP/s against 0.08 ms of bytes, so what
+// is left to pay is the traffic from L2 into shared memory (the query
+// slices are re-read for every 128 rows) and the fold. See hopper_scan.cuh.
+//
+// The grid puts the query tiles of one row block next to each other
+// (blockIdx.x), so the blocks that read the same rows run together and
+// the rows come from L2 after the first read: device memory sees the
+// vectors about once. A block's shared memory is a constant: any dp fits.
+#include "hopper_scan.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(vst::LANES)
-    fused_scan_kernel(const T* __restrict__ queries,
-                      const T* __restrict__ vectors,
+template <typename T, int N>
+__global__ void __launch_bounds__(vst::TensorScan<T, T, N>::THREADS, 2)
+    fused_scan_tensor(const __grid_constant__ typename vst::TensorScan<T, T, N>::Source src,
                       const float* __restrict__ a, const float* __restrict__ b,
                       float* __restrict__ out_rank, int* __restrict__ out_row,
                       int nq, int block_rows, int dp, int out_cols) {
-  extern __shared__ float qs[];  // [QT][dp], then the row tile
-  const int q0 = blockIdx.x * vst::QT;
-  const int blk = blockIdx.y;
-  const int nqt = min(vst::QT, nq - q0);
-  vst::stage_queries(queries + (int64_t)q0 * dp, nqt, dp, qs);
-  __syncthreads();
-  float best[vst::QT];
-  int best_row[vst::QT];
-  vst::scan_rows(qs, qs + vst::QT * dp, vectors, a, b, (int64_t)blk * block_rows,
-                 block_rows, dp, best, best_row);
-  const int col = blk * vst::LANES + threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < vst::QT; ++i) {
-    if (i < nqt) {
-      out_rank[(int64_t)(q0 + i) * out_cols + col] = best[i];
-      out_row[(int64_t)(q0 + i) * out_cols + col] = best_row[i];
-    }
-  }
+  using Core = vst::TensorScan<T, T, N>;
+  extern __shared__ uint8_t smem[];
+  typename Core::Ring ring = Core::Ring::make(smem);
+  const int q0 = blockIdx.x * N, blk = blockIdx.y;
+  const int64_t out0 = (int64_t)q0 * out_cols + blk * vst::LANES;
+  Core::scan_group(ring, src, q0, min(N, nq - q0), a, b, (int64_t)blk * block_rows, block_rows, dp,
+                   out_rank + out0, out_row + out0, out_cols);
 }
 
-template <typename T>
-int launch(const void* q, const void* v, const float* a, const float* b,
-           float* rank, int* row, int nq, int cap, int block_rows, int dp,
-           cudaStream_t stream) {
-  const size_t smem = vst::smem_bytes(dp);
-  cudaError_t err = vst::allow_smem(fused_scan_kernel<T>, smem);
+template <int GROUPS>
+__global__ void __launch_bounds__(vst::F32Scan<GROUPS>::THREADS, 1)
+    fused_scan_f32(const __grid_constant__ typename vst::F32Scan<GROUPS>::Source src,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ out_rank, int* __restrict__ out_row,
+                   int nq, int block_rows, int dp, int out_cols) {
+  using Core = vst::F32Scan<GROUPS>;
+  extern __shared__ uint8_t smem[];
+  typename Core::Ring ring = Core::Ring::make(smem);
+  const int q0 = blockIdx.x * Core::NQ_TILE, blk = blockIdx.y;
+  const int64_t out0 = (int64_t)q0 * out_cols + blk * vst::LANES;
+  Core::scan_group(ring, src, q0, min(Core::NQ_TILE, nq - q0), a, b, (int64_t)blk * block_rows, block_rows,
+                   dp, out_rank + out0, out_row + out0, out_cols);
+}
+
+template <typename T, int N>
+int launch_tensor(const void* q, const void* v, const float* a, const float* b, float* rank, int* row,
+                  int nq, int cap, int block_rows, int dp, cudaStream_t stream) {
+  using Core = vst::TensorScan<T, T, N>;
+  if (block_rows > Core::MAX_ROWS) return (int)cudaErrorInvalidValue;
+  typename Core::Source src{};
+  cudaError_t err = Core::make_source(&src, v, cap, q, nq, dp);
+  if (err == cudaSuccess) err = vst::allow_smem(fused_scan_tensor<T, N>, Core::Ring::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const int nblk = cap / block_rows;
-  const dim3 grid((nq + vst::QT - 1) / vst::QT, nblk);
-  fused_scan_kernel<T><<<grid, vst::LANES, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(v), a, b, rank, row, nq,
-      block_rows, dp, nblk * vst::LANES);
+  fused_scan_tensor<T, N><<<dim3((nq + N - 1) / N, nblk), Core::THREADS, Core::Ring::SMEM_BYTES, stream>>>(
+      src, a, b, rank, row, nq, block_rows, dp, nblk * vst::LANES);
   return (int)cudaGetLastError();
+}
+
+// the query tile a block takes: the smallest of 16, 32, 64 that holds nq
+template <typename T>
+int launch_tensor_n(const void* q, const void* v, const float* a, const float* b, float* rank, int* row,
+                    int nq, int cap, int block_rows, int dp, cudaStream_t stream) {
+  if (nq <= 16) return launch_tensor<T, 16>(q, v, a, b, rank, row, nq, cap, block_rows, dp, stream);
+  if (nq <= 32) return launch_tensor<T, 32>(q, v, a, b, rank, row, nq, cap, block_rows, dp, stream);
+  return launch_tensor<T, 64>(q, v, a, b, rank, row, nq, cap, block_rows, dp, stream);
+}
+
+template <int GROUPS>
+int launch_f32(const void* q, const void* v, const float* a, const float* b, float* rank, int* row,
+               int nq, int cap, int block_rows, int dp, cudaStream_t stream) {
+  using Core = vst::F32Scan<GROUPS>;
+  typename Core::Source src{};
+  cudaError_t err = Core::make_source(&src, v, cap, q, nq, dp);
+  if (err == cudaSuccess) err = vst::allow_smem(fused_scan_f32<GROUPS>, Core::Ring::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = cap / block_rows;
+  fused_scan_f32<GROUPS><<<dim3((nq + Core::NQ_TILE - 1) / Core::NQ_TILE, nblk), Core::THREADS, Core::Ring::SMEM_BYTES, stream>>>(
+      src, a, b, rank, row, nq, block_rows, dp, nblk * vst::LANES);
+  return (int)cudaGetLastError();
+}
+
+// 16 queries a thread group of 128: one group for nq <= 16, else two (three
+// or four groups leave a thread too few registers for its 4 x 16 tile)
+int launch_f32_n(const void* q, const void* v, const float* a, const float* b, float* rank, int* row,
+                 int nq, int cap, int block_rows, int dp, cudaStream_t stream) {
+  if (nq <= 16) return launch_f32<1>(q, v, a, b, rank, row, nq, cap, block_rows, dp, stream);
+  return launch_f32<2>(q, v, a, b, rank, row, nq, cap, block_rows, dp, stream);
 }
 
 }  // namespace
@@ -76,14 +116,11 @@ extern "C" int vst_fused_scan(const void* queries, const void* vectors,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case vst::F32:
-      return launch<float>(queries, vectors, a, b, rank, row, nq, cap,
-                           block_rows, dp, s);
+      return launch_f32_n(queries, vectors, a, b, rank, row, nq, cap, block_rows, dp, s);
     case vst::F16:
-      return launch<__half>(queries, vectors, a, b, rank, row, nq, cap,
-                            block_rows, dp, s);
+      return launch_tensor_n<__half>(queries, vectors, a, b, rank, row, nq, cap, block_rows, dp, s);
     case vst::BF16:
-      return launch<__nv_bfloat16>(queries, vectors, a, b, rank, row, nq, cap,
-                                   block_rows, dp, s);
+      return launch_tensor_n<__nv_bfloat16>(queries, vectors, a, b, rank, row, nq, cap, block_rows, dp, s);
   }
   return (int)cudaErrorInvalidValue;
 }

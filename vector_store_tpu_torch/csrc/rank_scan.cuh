@@ -1,20 +1,22 @@
-// Device code shared by the rank-scan kernels (fused_scan.cu,
-// grouped_scan.cu, partition_scan.cu).
+// The first scan core of the port, kept for the partition scan
+// (partition_scan.cu), and the constants all rank-scan kernels share
+// (LANES, DType). The fused scan and the grouped scan run the cores of
+// hopper_scan.cuh.
 //
-// Every kernel computes the same thing for a group of stored rows and a set
-// of query rows: the affine rank r = a[row] * (q . v[row]) + b[row] of every
-// (query, row) pair, folded to 128 candidates per query: candidate `lane`
-// is the row with the smallest rank among the group's rows whose offset in
-// the group is == lane (mod 128), ties going to the smaller row. Dead rows
-// carry b = 1e30 and so never win against a live one.
+// The core computes, for a group of stored rows and a set of query rows,
+// the affine rank r = a[row] * (q . v[row]) + b[row] of every (query, row)
+// pair, folded to 128 candidates per query: candidate `lane` is the row
+// with the smallest rank among the group's rows whose offset in the group
+// is == lane (mod 128), ties going to the smaller row. Dead rows carry
+// b = 1e30 and so never win against a live one.
 //
-// Design (a simple, correct first kernel; no wgmma or TMA yet):
+// Design (simple and correct; f32 FMAs on the CUDA cores for every
+// storage type, ordinary loads, one row tile):
 // - a block has 128 threads, one per lane, and a tile of NQ query rows
-//   (QT = 16 by default; 1 in the partition scan, where each query reads
-//   rows of its own), staged once in shared memory as f32 [NQ][dp]. The
-//   query type (stage_queries) and the storage type (scan_rows) are
-//   template parameters of their own: the IVF engine's I8 storage is
-//   scanned by bf16 queries;
+//   (1 in the partition scan, where each query reads rows of its own),
+//   staged once in shared memory as f32 [NQ][dp], so a block's shared
+//   memory grows with dp. The query type (stage_queries) and the storage
+//   type (scan_rows) are template parameters of their own;
 // - the block walks the group 256 rows at a time; each tile is copied to
 //   shared memory DK dimensions at a time with coalesced loads of 8
 //   elements (16 bytes of f16/bf16, 8 bytes of int8; converted to f32 with
@@ -23,9 +25,8 @@
 //   its lane's) from shared memory (rows padded by 4 floats: conflict-free
 //   16-byte reads) and accumulates 2 x NQ dot products in f32 registers
 //   against the query tile (shared-memory broadcasts, each used for both
-//   rows). Products of f16/bf16 values, and of a bf16 query with an int8
-//   row, are exact in f32, and F32 storage keeps full f32 precision: no
-//   TF32 anywhere;
+//   rows). Products of f16/bf16 values are exact in f32, and F32 storage
+//   keeps full f32 precision: no TF32 anywhere;
 // - the running (min rank, row) per query stays in registers, rows in
 //   increasing order, and each thread writes its NQ candidates at the end
 //   (coalesced across lanes).

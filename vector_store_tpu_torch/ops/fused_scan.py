@@ -15,8 +15,10 @@ offsets == l (mod 128), ties going to the smaller row. An exact top-k
 over these candidates follows outside the kernel (``rank_search``).
 
 ``fused_scan`` takes its plain PyTorch version (``fused_scan_plain``) for
-tensors on the CPU, and launches the CUDA kernel (csrc/fused_scan.cu) for
-tensors on a CUDA device; there is no other fallback. Unlike the Pallas
+tensors on the CPU, and launches the CUDA kernel (csrc/fused_scan.cu: f32
+FMAs on the CUDA cores for F32 rows, tensor-core MMAs with f32
+accumulation for F16/BF16 rows, any row length) for tensors on a CUDA
+device; there is no other fallback. Unlike the Pallas
 kernel's f32 offsets (a Mosaic workaround) the winners come back as int32
 absolute rows, and (a, b) are two f32 vectors instead of an [8, cap] side
 array.
@@ -26,6 +28,8 @@ block collide and only one survives (the JAX kernel has the same rule).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -61,7 +65,7 @@ def check_scan_inputs(
     """The kernels' contract: one device, one float storage dtype shared by
     queries and rows (or, with ``i8_rows``, int8 rows scanned by bf16
     queries), (a, b) f32 per row, contiguous rows padded to a multiple of 8
-    elements."""
+    elements (16 for int8 rows: the kernels copy 16 bytes at a time)."""
     same_float = queries.dtype == vectors.dtype and queries.dtype in FLOAT_DTYPES
     i8_pair = i8_rows and vectors.dtype == torch.int8 and queries.dtype == torch.bfloat16
     if not (same_float or i8_pair):
@@ -82,8 +86,9 @@ def check_scan_inputs(
         )
     if a.shape != (vectors.shape[0],) or b.shape != (vectors.shape[0],):
         raise ValueError("a and b must hold one value per stored row")
-    if vectors.shape[1] % 8:
-        raise ValueError(f"row length {vectors.shape[1]} is not a multiple of 8")
+    pad = 16 if vectors.dtype == torch.int8 else 8
+    if vectors.shape[1] % pad:
+        raise ValueError(f"row length {vectors.shape[1]} is not a multiple of {pad}")
     if not all(t.is_contiguous() for t in (queries, vectors, a, b)):
         raise ValueError("scan inputs must be contiguous")
 
@@ -144,10 +149,14 @@ def fused_scan(
         )
         with kernels.count_lock:
             fused_scan.launches += 1
+            fused_scan.launches_by[str(queries.dtype).removeprefix("torch.")] += 1
     return rank, row
 
 
 fused_scan.launches = 0
+# storage dtype name -> launches: F32 rows run the kernel's CUDA-core
+# instantiation, F16/BF16 rows its tensor-core one
+fused_scan.launches_by = collections.Counter()
 
 
 def rank_search(

@@ -16,9 +16,11 @@ Counterpart of vector_store_tpu/ops/ivf.py:
 
 The probe, regroup and merge are plain PyTorch, as they were XLA outside
 the Pallas kernel. ``grouped_scan`` takes its plain version for CPU
-tensors and launches csrc/grouped_scan.cu for CUDA tensors, with ``g``
-clusters per CUDA block (the Pallas kernel's g clusters per grid step,
-kernel 4 of the JAX package's scripts/ivf_stage_opt2.py).
+tensors and launches csrc/grouped_scan.cu for CUDA tensors (tensor-core
+MMAs with f32 accumulation for F16/BF16/I8 rows, f32 FMAs on the CUDA
+cores for F32 rows, any row length), with ``g`` clusters per CUDA block
+(the Pallas kernel's g clusters per grid step, kernel 4 of the JAX
+package's scripts/ivf_stage_opt2.py).
 """
 
 from __future__ import annotations
@@ -217,14 +219,18 @@ def choose_g() -> int:
 
     On the TPU a grid step had a fixed cost that g clusters per step
     amortised, and _choose_g took the largest g its VMEM budget allowed.
-    On the H100 the blocks run in parallel and g only trades the block
-    count for the work of each block. The rule is the g sweep of
+    On the H100 the blocks run in parallel; a block sets up its ring once
+    and then scans its g clusters one after the other, each exactly as a
+    block of its own would, so g only trades the block count (and that
+    set-up) for the work of each block. The rule is the g sweep of
     chip_smoke.py at two shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md
-    §5): at the stage ablation's (BF16 nlist 2048 x cmax 1024, s 128)
-    g = 1 won in both runs (3.039 against 3.104 / 3.157 / 3.276 ms at
-    g = 2 / 4 / 8 in the first), and at the global smoke's (F32 nlist
-    2048 x cmax 768, s 32) no g > 1 beat the run-to-run spread of g = 1.
-    So one cluster per block, at every shape."""
+    section 5), g = 1 / 2 / 4 / 8 in two runs of the tensor-core and
+    register-tiled cores: at the stage ablation's shape (BF16 nlist 2048 x
+    cmax 1024, s 128) 0.403 / 0.392 / 0.389 / 0.383 ms and 0.390 / 0.403 /
+    0.381 / 0.390 ms, no g ahead of g = 1 in both; at the global smoke's
+    (F32 nlist 2048 x cmax 768, s 32) 0.415 / 0.454 / 0.455 / 0.463 ms and
+    0.481 / 0.486 / 0.487 / 0.489 ms, g = 1 ahead in both. So one cluster
+    per block, at every shape."""
     return 1
 
 

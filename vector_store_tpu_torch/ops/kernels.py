@@ -2,7 +2,11 @@
 
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` process per source, all started together, and linked into one
-shared library with a plain C interface, loaded with ctypes. The build
+shared library with a plain C interface, loaded with ctypes. They need
+``nvcc`` and the CUDA runtime only: the fused and grouped scans stage their
+operands by TMA, and the tensor maps are encoded by a libcuda function that
+the runtime looks up (``cudaGetDriverEntryPoint``), so nothing links libcuda
+itself and no other header tree is included. The build
 happens at first use (never at import: a CPU-only installation imports
 every module of the port) into ``vector_store_tpu_torch/_build/``, keyed by
 a hash of the sources, so an unchanged checkout builds once.
@@ -79,16 +83,16 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return [err for _, err in outs]
 
 
-def _build(sources: list[Path], so: Path) -> str:
-    """Compile each source to an object, all at once, then link them into
-    ``so`` (written under a temporary name, then moved into place); return
-    the compiler's resource report (-Xptxas -v)."""
+def _build(sources: list[Path], so: Path, flags: tuple[str, ...]) -> str:
+    """Compile each source (with the extra ``flags``) to an object, all at
+    once, then link them into ``so`` (written under a temporary name, then
+    moved into place); return the compiler's resource report (-Xptxas -v)."""
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in sources]
     try:
         report = _run_all([
             [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+             "-Xptxas", "-v", *flags, "-c", "-o", str(obj), str(src)]
             for src, obj in zip(sources, objs)
         ])
         tmp = so.with_name(f"{so.name}.{tag}")
@@ -100,41 +104,50 @@ def _build(sources: list[Path], so: Path) -> str:
     return "".join(report)
 
 
+def load(flags: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, float | None, str]:
+    """Build (unless ``_build/`` already holds them) and bind the kernels of
+    ``csrc/``: (library, nvcc wall seconds or None, the compiler's resource
+    report). ``library`` does this with no extra flags; the ablation script
+    (bench/scan_ablation.py) passes the -D switches of csrc/hopper_scan.cuh."""
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sources + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(path.name.encode() + path.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + tuple(flags)).encode())
+    so = BUILD_DIR / f"libvst_kernels_{digest.hexdigest()[:16]}.so"
+    seconds, report = None, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        report = _build(sources, so, tuple(flags))
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.vst_error_string.argtypes = [ctypes.c_int]
+    lib.vst_error_string.restype = ctypes.c_char_p
+    return lib, seconds, report
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built from ``csrc/`` on first use."""
     global _lib, build_seconds, ptxas_report
     with _lock:
-        if _lib is not None:
-            return _lib
-        sources = sorted(CSRC_DIR.glob("*.cu"))
-        digest = hashlib.sha256()
-        for path in sources + sorted(CSRC_DIR.glob("*.cuh")):
-            digest.update(path.name.encode() + path.read_bytes())
-        digest.update(" ".join(ARCH_FLAGS).encode())
-        so = BUILD_DIR / f"libvst_kernels_{digest.hexdigest()[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            ptxas_report = _build(sources, so)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = (
-                [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
-        lib.vst_error_string.argtypes = [ctypes.c_int]
-        lib.vst_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib, build_seconds, ptxas_report = load()
+        return _lib
 
 
-def launch(name: str, tensors: list[torch.Tensor], ints: list[int]) -> None:
-    """Call entry point ``name`` with the tensors' device pointers, the int
-    arguments, the tensors' device index and PyTorch's current stream on
-    that device; raise if the launch was refused."""
-    lib = library()
+def launch(
+    name: str, tensors: list[torch.Tensor], ints: list[int], lib: ctypes.CDLL | None = None
+) -> None:
+    """Call entry point ``name`` (of ``lib``; by default of ``library()``)
+    with the tensors' device pointers, the int arguments, the tensors'
+    device index and PyTorch's current stream on that device; raise if the
+    launch was refused."""
+    lib = lib or library()
     device = tensors[0].device
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, name)(
