@@ -16,7 +16,11 @@ failure:
    grouped scan over nlist 2048 x cmax 768 with the slot budget of a
    1024-query batch at nprobe 32, F32 and BF16; the partition scan over
    the partition-1000k mirror (P_cap 2048 x pmax 1024 positions, ~5%
-   empty, 1025 live buckets) at B = 2048 and B = 8, F32 and BF16; the
+   empty, 1025 live buckets; bench/partition_times.py's data) at B 2048
+   with uniform and with Zipf-drawn buckets, B 64 and B 8, F32 and BF16,
+   and small at its edge cases (pmax 128 and 16384, Dp 3072, a bucket of
+   three tiles and one query, every query in one bucket, the largest
+   bucket id, an all-dead bucket); the
    grouped scan at g = 1, 2, 4 and 8 clusters per block (kernel 4) at the
    stage ablation's shape (BF16, nlist 2048 x cmax 1024, s 128) and at the
    global smoke's (F32, nlist 2048 x cmax 768, s 32); and the I8 grouped
@@ -100,11 +104,11 @@ RTOL = 1e-4
 I8_ROWS, I8_DIMS, I8_CENTERS = 1_000_000, 1536, 1024  # dbpedia-i8
 I8_RECALL_REFERENCE = 0.9594  # the JAX package's run of dbpedia-i8 (SCALE_RUNS.jsonl:21)
 G_SWEEP = (1, 2, 4, 8)
-# each kernel's time under the first scan core (csrc/rank_scan.cuh), before
-# the fused and grouped scans were redesigned for Hopper: ms at the same
-# shapes on an NVIDIA H100 80GB HBM3 at 700 W, copied from PERF.md section 5
-# (that core's last full smoke run), not measured by this script. Printed
-# beside this run's times in a [kernels] log line, never in the result
+# each kernel's time under the port's first scan core, before its redesign
+# for Hopper: ms at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W,
+# copied from PERF.md section 5 (that core's last full smoke run), not
+# measured by this script. Printed beside this run's times in a [kernels]
+# log line, never in the result
 PREV_MS = {"fused_scan": 11.236, "grouped_scan": 0.664, "partition_scan": 0.357, "grouped_scan_g": 3.173,
            "grouped_scan_i8": 17.042}
 
@@ -462,57 +466,48 @@ def grouped_i8_kernel(device) -> dict:
 
 
 def partition_kernel(device, rng) -> dict:
-    """Kernel 3 at the partition-1000k mirror's shape, and the directory
-    against the masked scan at the same batch sizes."""
+    """Kernel 3 on the partition-1000k mirror (the data of
+    bench/partition_times.py): F32 and BF16, B 2048 with uniform and with
+    Zipf-drawn buckets, B 64 and B 8; its edge cases; then the directory
+    against the masked scan at two batch sizes."""
+    from vector_store_tpu_torch.bench import partition_times as pt
     from vector_store_tpu_torch.core.types import Quantization, SpaceType
     from vector_store_tpu_torch.engine.flat import PART_CROSSOVER, FlatDeviceIndex
     from vector_store_tpu_torch.ops import fused_scan as fs
     from vector_store_tpu_torch.ops import partition_scan as ps
 
-    pmax, npos = PART_PMAX, PART_PCAP * PART_PMAX
-    v32 = torch.from_numpy(rng.standard_normal((npos, DIMS), dtype=np.float32)).to(device)
-    v32 /= v32.norm(dim=1, keepdim=True)
-    a = torch.full((npos,), -1.0, device=device)
-    b = torch.zeros((npos,), device=device)
-    b[torch.from_numpy(rng.random(npos) < 0.05).to(device)] = fs.INVALID_BIAS  # empty positions
-    b[LOCAL_PARTS * pmax :] = fs.INVALID_BIAS  # buckets past the live partitions
-    entry = {"name": "partition_scan", "route": "cuda", "source": "vector_store_tpu_torch/csrc/partition_scan.cu",
+    pmax, npos = pt.PMAX, pt.PCAP * pt.PMAX
+    v32, a, b = pt.mirror(device, SEED)
+    entry = {"name": "partition_scan", "route": "cuda",
+             "source": "vector_store_tpu_torch/csrc/partition_scan.cu + vector_store_tpu_torch/csrc/hopper_scan.cuh",
              "replaces": "vector_store_tpu/ops/partition_scan.py:55"}
-    errs, times, n_buckets = [], {}, {}
-    for nq in (2048, 8):
-        q32 = torch.from_numpy(rng.standard_normal((nq, DIMS), dtype=np.float32)).to(device)
-        q32 /= q32.norm(dim=1, keepdim=True)
-        bsel = torch.from_numpy(rng.integers(0, LOCAL_PARTS, size=nq).astype(np.int32)).to(device)
-        n_buckets[nq] = int(torch.unique(bsel).numel())  # the buckets this batch reads
-        for dt in (torch.float32, torch.bfloat16):
-            q, v = q32.to(dt), v32.to(dt)
+    errs = []
+    for dname, dt in pt.DTYPES.items():
+        v = v32.to(dt)
+        for label in pt.BATCHES:
+            q32, bsel = pt.batch(label, device, SEED)
+            q, nq = q32.to(dt), q32.shape[0]
             rank, pos = ps.partition_scan(v, a, b, q, bsel, pmax)
             prank, ppos = ps.partition_scan_plain(v, a, b, q, bsel, pmax)
-
-            def exact(qi, rows, q=q, v=v):
-                return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + b[rows]
-
-            def group(qi, col, rows=None, bsel=bsel):
-                if rows is None:
-                    return bsel[qi].long() * pmax + col
-                return (rows // pmax) * pmax + rows % fs.LANES
-
-            errs.append(compare(f"partition_scan/{dt}/B={nq}", rank, pos, prank, ppos, exact, group))
-            vb_sel = v.view(-1, pmax, DIMS)[bsel.long()]  # the product's operand, gathered beforehand
-            times[nq, dt] = (
-                median_ms(lambda: ps.partition_scan(v, a, b, q, bsel, pmax)),
-                median_ms(lambda: ps.partition_scan_plain(v, a, b, q, bsel, pmax), reps=5),
-                median_ms(lambda: torch.bmm(q[:, None, :], vb_sel.transpose(1, 2)), reps=5),
-            )
-            del vb_sel
-            print(f"[kernels] partition_scan {dt} P_cap={PART_PCAP} pmax={pmax} B={nq}: kernel "
-                  f"{times[nq, dt][0]:.3f} ms, plain {times[nq, dt][1]:.3f} ms, max |rank err| {errs[-1]:.3g} "
-                  f"(tolerance {RTOL:g} * (1 + |r|))", flush=True)
-        del v, prank, ppos
-    entry.update(max_abs_err=max(errs), ms=times[2048, torch.float32][0], plain_ms=times[2048, torch.float32][1],
-                 library_ms=None, product_only_ms=times[2048, torch.float32][2],
-                 **scan_bound(n_buckets[2048] * pmax, 2048, 2048 * pmax, DIMS, torch.float32, torch.float32,
-                              2048 * fs.LANES))
+            errs.append(compare(f"partition_scan/{dname}/{label}", rank, pos, prank, ppos,
+                                *partition_oracle(q, v, a, b, bsel, pmax)))
+            del rank, pos, prank, ppos
+            n_buckets = int(torch.unique(bsel).numel())  # the buckets this batch reads
+            ms = median_ms(lambda: ps.partition_scan(v, a, b, q, bsel, pmax), reps=20)
+            plain_ms = median_ms(lambda: ps.partition_scan_plain(v, a, b, q, bsel, pmax), reps=5)
+            bnd = scan_bound(n_buckets * pmax, nq, nq * pmax, DIMS, dt, dt, nq * fs.LANES)
+            hot = int(torch.bincount(bsel).max())
+            print(f"[kernels] partition_scan {dname} P_cap={pt.PCAP} pmax={pmax} {label} ({n_buckets} buckets, the "
+                  f"hottest {hot} queries): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} "
+                  f"ms ({bnd['bound_by']}), max |rank err| {errs[-1]:.3g} (tolerance {RTOL:g} * (1 + |r|))",
+                  flush=True)
+            if dname == "F32" and label == "B 2048 uniform":
+                vb_sel = v.view(-1, pmax, DIMS)[bsel.long()]  # the product's operand, gathered beforehand
+                product_ms = median_ms(lambda: torch.bmm(q[:, None, :], vb_sel.transpose(1, 2)), reps=5)
+                del vb_sel
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=None, product_only_ms=product_ms, **bnd)
+        del v
+    entry["max_abs_err"] = max(errs + [partition_edges(device)])
 
     # directory (kernel path, as the engine runs it) against the masked scan
     # of a 1M-row BF16 flat array, both at k = 10
@@ -522,7 +517,7 @@ def partition_kernel(device, rng) -> dict:
     flat.a.fill_(-1.0)
     flat.b[:SERVICE_ROWS] = 0.0
     flat.parts[:SERVICE_ROWS] = torch.arange(SERVICE_ROWS, device=device, dtype=torch.int32) % LOCAL_PARTS
-    vb, rows = v32.to(torch.bfloat16), torch.arange(npos, dtype=torch.int32, device=device).view(PART_PCAP, pmax)
+    vb, rows = v32.to(torch.bfloat16), torch.arange(npos, dtype=torch.int32, device=device).view(pt.PCAP, pmax)
     crossing = {}
     for nq in (8, 2048):
         q = torch.from_numpy(rng.standard_normal((nq, DIMS), dtype=np.float32)).to(device).to(torch.bfloat16)
@@ -543,6 +538,71 @@ def partition_kernel(device, rng) -> dict:
     del v32, vb, flat
     torch.cuda.empty_cache()
     return entry
+
+
+def partition_oracle(q, v, a, b, bsel, pmax):
+    """compare()'s two callbacks for a partition scan: the exact rank of
+    given positions, and the (bucket, lane) group of a column or a
+    position."""
+    from vector_store_tpu_torch.ops.fused_scan import LANES
+
+    def exact(qi, rows):
+        return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + b[rows]
+
+    def group(qi, col, rows=None):
+        if rows is None:
+            return bsel[qi].long() * pmax + col
+        return (rows // pmax) * pmax + rows % LANES
+
+    return exact, group
+
+
+def partition_edges(device) -> float:
+    """The partition scan, small, against its plain version where its tiles,
+    its chunks and its cores could go wrong: pmax 128 and 16384 (the ends of
+    the directory's ladder; at B 64 and B 8 a 16384-row bucket is cut into
+    chunks, the last one short), Dp 3072, a bucket holding 3 tiles + 1
+    query, every query in one bucket, the largest bucket id, and an
+    all-dead bucket (bucket 3, which all cases but one read: its lanes
+    return their first positions at INVALID_BIAS). F32 and BF16. Returns the max
+    |rank err|."""
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import partition_scan as ps
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    tile = ps.TILE_QUERIES
+    cases = (  # (label, buckets, pmax, Dp, bsel); bucket 3 is dead
+        ("pmax 128", 64, 128, DIMS, np.r_[rng.integers(0, 64, 63), 3]),
+        ("pmax 16384 B 64", 6, 16384, DIMS, np.r_[rng.integers(0, 6, 63), 3]),
+        ("pmax 16384 B 8", 6, 16384, DIMS, np.r_[rng.integers(0, 6, 7), 3]),
+        ("Dp 3072", 16, 1024, 3072, np.r_[rng.integers(0, 16, 39), 3]),
+        ("3 tiles + 1 in one bucket", 16, 1024, DIMS, np.r_[np.full(3 * tile + 1, 5), rng.integers(0, 16, 14), 3]),
+        ("every query in one bucket", 16, 1024, DIMS, np.full(100, 2)),
+        ("every query in the dead bucket", 16, 1024, DIMS, np.full(20, 3)),
+        ("the largest bucket id", 16, 1024, DIMS, np.r_[np.full(tile + 3, 15), rng.integers(0, 16, 8), 3]),
+    )
+    worst = 0.0
+    for label, nparts, pmax, dp, bsel_np in cases:
+        bsel = torch.from_numpy(rng.permutation(bsel_np.astype(np.int32))).to(device)
+        v32 = unit_rows_on(device, gen, nparts * pmax, dp, torch.float32)
+        q32 = unit_rows_on(device, gen, bsel.shape[0], dp, torch.float32)
+        a, b = cosine_coeffs(v32, gen, fill=0.95)
+        b[3 * pmax : 4 * pmax] = fs.INVALID_BIAS
+        for dname, dt in (("F32", torch.float32), ("BF16", torch.bfloat16)):
+            v, q = v32.to(dt), q32.to(dt)
+            rank, pos = ps.partition_scan(v, a, b, q, bsel, pmax)
+            prank, ppos = ps.partition_scan_plain(v, a, b, q, bsel, pmax)
+            worst = max(worst, compare(f"partition_scan/edge/{label}/{dname}", rank, pos, prank, ppos,
+                                       *partition_oracle(q, v, a, b, bsel, pmax)))
+            dead = bsel == 3
+            check(torch.equal(pos[dead], ppos[dead]) and bool((rank[dead] == fs.INVALID_BIAS).all()),
+                  f"partition_scan/edge/{label}/{dname}: the dead bucket did not return its first positions")
+        del v32, q32, v, q
+    print(f"[kernels] partition_scan edge cases ({'; '.join(c[0] for c in cases)}), F32 and "
+          f"BF16: all within tolerance, max |rank err| {worst:.3g}", flush=True)
+    return worst
 
 
 def clustered_rows(rng, n: int, dims: int = DIMS, n_clusters: int = N_CLUSTERS) -> np.ndarray:
@@ -965,6 +1025,8 @@ def main() -> None:
     for line in kernels.ptxas_report.splitlines():
         if "Used " in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
+    spills = [line for line in kernels.ptxas_report.splitlines() if "spill" in line and " 0 bytes spill stores" not in line]
+    check(not spills, f"ptxas reports spills: {spills}")
 
     results = kernel_phase(device)
     print("[kernels] before the redesign for Hopper (PERF.md section 5: the first scan core's last smoke run, same "

@@ -1,7 +1,11 @@
 """The CUDA scan kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (the kernels build at first use)
-and skip elsewhere. The grouped scan runs at g = 1, 2, 4 and 8 clusters
+and skip elsewhere. The partition scan runs on bucket layouts that tile
+differently (a Zipf batch, a hot bucket, the last bucket, an all-dead
+bucket), at the batch sizes whose buckets split across blocks, at pmax
+128 and 16384, at Dp 3072, and at every chunk size against the unsplit
+result. The grouped scan runs at g = 1, 2, 4 and 8 clusters
 per block and over int8 rows (the I8 index); both scans also run at the
 tails their tensor-core and register-tiled cores must get right (a row
 length that is 8 mod 16, query tiles cut short, cmax 384 and 640, a group
@@ -248,6 +252,109 @@ def test_partition_scan_matches_plain(cuda, dtype, nq, pmax):
     assert bool(((off >= 0) & (off < pmax) & (off % fused_scan.LANES == torch.arange(128, device=cuda))).all())
     _assert_close_to_plain(rank, off, prank, full)
     assert torch.equal(pos[0], ppos[0])  # the empty bucket: exact ties go to the first row
+
+
+def _partition_case(rng, cuda, dtype, nparts, pmax, d, bsel):
+    """A mirror of nparts buckets (bucket 3, where there is one, all dead;
+    ~1/6 of the other positions empty), queries, and the exact ranks of
+    each query's bucket."""
+    v = _rows(rng, nparts * pmax, d, cuda, dtype)
+    q = _rows(rng, len(bsel), d, cuda, dtype)
+    a = torch.full((nparts * pmax,), -2.0, device=cuda)
+    b = torch.rand(nparts * pmax, device=cuda)
+    b[::6] = fused_scan.INVALID_BIAS
+    b[3 * pmax : 4 * pmax] = fused_scan.INVALID_BIAS
+    bsel = torch.from_numpy(np.asarray(bsel, np.int32)).to(cuda)
+    sel = bsel.long()
+    full = a.view(nparts, pmax)[sel] * torch.einsum(
+        "bd,bmd->bm", q.float(), v.float().view(nparts, pmax, d)[sel]
+    ) + b.view(nparts, pmax)[sel]
+    return v, q, a, b, bsel, full
+
+
+def _check_partition(v, q, a, b, bsel, full, pmax):
+    rank, pos = ps.partition_scan(v, a, b, q, bsel, pmax)
+    prank, ppos = ps.partition_scan_plain(v, a, b, q, bsel, pmax)
+    off = pos.long() - bsel.long()[:, None] * pmax
+    lanes = torch.arange(fused_scan.LANES, device=pos.device)
+    assert bool(((off >= 0) & (off < pmax) & (off % fused_scan.LANES == lanes)).all())
+    _assert_close_to_plain(rank, off, prank, full)
+    dead = bsel == 3  # an all-dead bucket: exact ties go to the first rows
+    assert torch.equal(pos[dead], ppos[dead]) and bool((rank[dead] == fused_scan.INVALID_BIAS).all())
+    return rank, pos
+
+
+TILE = ps.TILE_QUERIES
+
+
+def _zipf(rng, n, nparts, s=1.1):
+    w = 1.0 / np.arange(1, nparts + 1) ** s
+    return rng.choice(nparts, size=n, p=w / w.sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "layout", ["zipf", "3N+1 in one bucket", "all in one bucket", "largest bucket id", "B 8", "B 64"]
+)
+def test_partition_scan_bucket_layouts(cuda, dtype, layout):
+    """Tiles of one bucket (a hot bucket's many tiles, a tile of one query
+    after three full ones, the last bucket) and the batch sizes whose
+    buckets are split into chunks across blocks."""
+    rng = np.random.default_rng(len(layout))
+    nparts, pmax, d = 9, 1024, 72
+    bsel = {
+        "zipf": lambda: _zipf(rng, 300, nparts),
+        "3N+1 in one bucket": lambda: np.r_[np.full(3 * TILE + 1, 5), rng.integers(0, nparts, 20)],
+        "all in one bucket": lambda: np.full(100, 2),
+        "largest bucket id": lambda: np.r_[np.full(TILE + 3, nparts - 1), [3, 0, nparts - 1]],
+        "B 8": lambda: rng.integers(0, nparts, 8),
+        "B 64": lambda: rng.integers(0, nparts, 64),
+    }[layout]()
+    before = ps.partition_scan.launches
+    _check_partition(*_partition_case(rng, cuda, dtype, nparts, pmax, d, bsel), pmax)
+    assert ps.partition_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("nq,pmax,d", [(8, 16384, 64), (64, 16384, 64), (40, 128, 3072), (40, 1024, 3072)])
+def test_partition_scan_pmax_ends_and_dp_3072(cuda, dtype, nq, pmax, d):
+    rng = np.random.default_rng(nq + pmax + d)
+    nparts = 4
+    bsel = rng.integers(0, nparts, nq)
+    _check_partition(*_partition_case(rng, cuda, dtype, nparts, pmax, d, bsel), pmax)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_partition_scan_split_equals_unsplit(cuda, dtype):
+    """The entry point sorts the batch as bucket_order does, and at every
+    chunk size gives the unsplit result bit for bit, rows tied on purpose
+    across chunks included (bucket 1 repeats its first 256 rows)."""
+    from vector_store_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(7)
+    nparts, pmax, d, nq = 5, 1024, 64, 24
+    v, q, a, b, bsel, _ = _partition_case(rng, cuda, dtype, nparts, pmax, d, _zipf(rng, nq, nparts))
+    rows = v.view(nparts, pmax, d)
+    rows[1, 256:512] = rows[1, :256]
+    b.view(nparts, pmax)[1, 256:512] = b.view(nparts, pmax)[1, :256]
+    perm, sorted_bsel, run_start = ps.bucket_order(bsel)
+    results = []
+    for chunk in (pmax, 512, 256, 128):
+        splits = pmax // chunk
+        scratch = [torch.empty_like(q), torch.empty((3, nq), dtype=torch.int32, device=cuda),
+                   torch.empty((splits, nq, 128), device=cuda),
+                   torch.empty((splits, nq, 128), dtype=torch.int32, device=cuda)]
+        out = [torch.empty((nq, 128), device=cuda), torch.empty((nq, 128), dtype=torch.int32, device=cuda)]
+        kernels.launch("vst_partition_scan", [q, v, a, b, bsel, *scratch, *out],
+                       [nq, nparts, pmax, d, kernels.DTYPE_CODES[dtype], chunk])
+        q_sorted, order, chunk_rank, chunk_pos = scratch
+        assert torch.equal(order[0].long(), perm) and torch.equal(order[1], sorted_bsel)
+        assert torch.equal(order[2], run_start) and torch.equal(q_sorted, q[perm])
+        merged = ps.merge_chunks_plain(chunk_rank, chunk_pos)
+        assert torch.equal(out[0][perm], merged[0]) and torch.equal(out[1][perm], merged[1])  # row r is query perm[r]
+        results.append(out)
+    for rank, pos in results[1:]:
+        assert torch.equal(rank, results[0][0]) and torch.equal(pos, results[0][1])
 
 
 def test_partition_candidates_on_the_card(cuda):

@@ -15,6 +15,8 @@ tests/test_engine_flat.py's TestPartitionKernel does. Rules:
   exactly the JAX XLA paths' slots, distances within 1e-5.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -258,7 +260,9 @@ def test_crossover_rule(monkeypatch):
     of the table goes to the masked scan, with the same exact answer."""
     rng = np.random.default_rng(5)
     vecs = rng.normal(size=(300, D)).astype(np.float32)
-    idx = port_index(capacity=512)
+    # partition 0's 250 rows give pmax 256: a table too small for it to
+    # take the directory, then (reserve) one just large enough
+    idx = port_index(capacity=min(512, math.ceil(256 / PART_CROSSOVER) - 1))
     idx.upsert_batch(np.arange(300), np.zeros(300, np.int32), vecs, partitions=(np.arange(300) >= 250))
     pmax = idx._part_rows_host.shape[1]
     assert pmax == 256 and pmax > PART_CROSSOVER * idx.capacity
@@ -271,7 +275,7 @@ def test_crossover_rule(monkeypatch):
     q, psel = vecs[[3, 260]] + 0.05, np.array([0, 1], np.int32)
     masked = idx.search(q, 200, partitions=psel)
     assert calls == [1]
-    idx.reserve(1500)  # a larger table: the same partition now takes the directory
+    idx.reserve(math.ceil(pmax / PART_CROSSOVER))  # a larger table: the same partition now takes the directory
     assert pmax <= PART_CROSSOVER * idx.capacity and idx._part_directory_wins()
     assert_exact(idx.search(q, 200, partitions=psel), masked)  # the bucket gather
     assert calls == [1]

@@ -1,4 +1,4 @@
-"""Ablation of the fused and grouped scan kernels on one GPU.
+"""Ablation of the scan kernels (fused, grouped, partition) on one GPU.
 
 Where does a scan's time go? Each variant is the kernels of csrc/ with one
 part of the scan cores cut out by a compile-time switch of
@@ -19,8 +19,11 @@ kernels' in the same run:
 Shapes: the fused scan over 1,015,808 x 128 rows with 1024 queries (F32,
 BF16); the grouped scan at nlist 2048 x cmax 768, s 32 (F32), at the stage
 ablation's nlist 2048 x cmax 1024, s 128 (BF16) and at the I8 main
-region's nlist 2048 x cmax 640, Dp 1536, s 32 (int8 rows, bf16 queries).
-Times are medians of CUDA-event timings after a warm-up.
+region's nlist 2048 x cmax 640, Dp 1536, s 32 (int8 rows, bf16 queries);
+the partition scan over bench/partition_times.py's mirror (P_cap 2048 x
+pmax 1024) with its B 2048 uniform batch (F32, BF16): its entry point's
+three kernels (sort by bucket, scan, chunk merge), of which only the scan
+runs the cores. Times are medians of CUDA-event timings after a warm-up.
 
     python -m vector_store_tpu_torch.bench.scan_ablation [--reps 10] [variant ...]
 """
@@ -34,6 +37,7 @@ import sys
 
 import torch
 
+from vector_store_tpu_torch.bench import partition_times
 from vector_store_tpu_torch.ops import kernels
 from vector_store_tpu_torch.ops.fused_scan import LANES
 
@@ -53,7 +57,8 @@ def build_variant(name: str):
 
 
 def make_cases(device, seed: int = 0) -> dict:
-    """name -> (entry point, tensors without outputs, ints, output rows)."""
+    """name -> (entry point, tensors without outputs, ints, outputs as
+    (shape, dtype) in the entry point's order)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -73,7 +78,7 @@ def make_cases(device, seed: int = 0) -> dict:
     for label, dt in (("fused F32", torch.float32), ("fused BF16", torch.bfloat16)):
         ints = [nq, cap, block, 128, kernels.DTYPE_CODES[dt]]
         cases[label] = ("vst_fused_scan", [rows(nq, 128, dt), rows(cap, 128, dt), *coeffs(cap)], ints,
-                        (nq, cap // block * LANES))
+                        candidates((nq, cap // block * LANES)))
     for label, dt, qdt, nlist, cmax, s, dp in (
         ("grouped F32", torch.float32, torch.float32, 2048, 768, 32, 128),
         ("grouped BF16 s128", torch.bfloat16, torch.bfloat16, 2048, 1024, 128, 128),
@@ -81,8 +86,21 @@ def make_cases(device, seed: int = 0) -> dict:
     ):
         ints = [nlist, s, cmax, dp, kernels.DTYPE_CODES[dt], 1]
         cases[label] = ("vst_grouped_scan", [rows(nlist * s, dp, qdt), rows(nlist * cmax, dp, dt),
-                                             *coeffs(nlist * cmax)], ints, (nlist * s, LANES))
+                                             *coeffs(nlist * cmax)], ints, candidates((nlist * s, LANES)))
+    v32, a, b = partition_times.mirror(device)
+    q32, bsel = partition_times.batch("B 2048 uniform", device)
+    nq, pmax, dp = q32.shape[0], partition_times.PMAX, partition_times.DIMS
+    for label, dt in (("partition F32", torch.float32), ("partition BF16", torch.bfloat16)):
+        ints = [nq, partition_times.PCAP, pmax, dp, kernels.DTYPE_CODES[dt], pmax]
+        cases[label] = ("vst_partition_scan", [q32.to(dt), v32.to(dt), a, b, bsel], ints,
+                        [((nq, dp), dt), ((3, nq), torch.int32)] + candidates((1, nq, LANES))
+                        + candidates((nq, LANES)))
     return cases
+
+
+def candidates(shape) -> list:
+    """The (rank, position) outputs of a scan, as (shape, dtype)."""
+    return [(shape, torch.float32), (shape, torch.int32)]
 
 
 def median_ms(fn, reps: int) -> float:
@@ -105,9 +123,8 @@ def run(device, names: list[str] | None = None, reps: int = 10) -> dict[str, dic
     own spread)."""
     cases = make_cases(device)
     outs = {
-        label: (torch.empty(shape, dtype=torch.float32, device=device),
-                torch.empty(shape, dtype=torch.int32, device=device))
-        for label, (_, _, _, shape) in cases.items()
+        label: [torch.empty(shape, dtype=dtype, device=device) for shape, dtype in shapes]
+        for label, (_, _, _, shapes) in cases.items()
     }
     result = {}
     for name in ["as built", *(names or [n for n in VARIANTS if n != "as built"]), "as built"]:

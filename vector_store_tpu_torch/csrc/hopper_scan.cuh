@@ -1,11 +1,14 @@
-// The two scan cores of the fused scan (fused_scan.cu) and the grouped scan
-// (grouped_scan.cu), designed for Hopper (sm_90a). They replace the bodies
-// of the Pallas kernels vector_store_tpu/ops/pallas_scan.py::_fused_scan
-// and vector_store_tpu/ops/ivf.py::_grouped_scan (and, through the grouped
-// scan's g argument, scripts/ivf_stage_opt2.py::_grouped_scan_g).
+// The two scan cores of every rank-scan kernel of the port, designed for
+// Hopper (sm_90a): the fused scan (fused_scan.cu), the grouped scan
+// (grouped_scan.cu) and the partition scan (partition_scan.cu). They replace
+// the bodies of the Pallas kernels vector_store_tpu/ops/pallas_scan.py::
+// _fused_scan, vector_store_tpu/ops/ivf.py::_grouped_scan (and, through the
+// grouped scan's g argument, scripts/ivf_stage_opt2.py::_grouped_scan_g)
+// and vector_store_tpu/ops/partition_scan.py::partition_rank_scan.
 //
 // Both cores compute, for one group of stored rows (a block_rows block, a
-// cluster; a multiple of 128 rows) and a tile of query rows, the affine
+// cluster, a partition's bucket or a chunk of one; a multiple of 128 rows)
+// and a tile of query rows, the affine
 // rank r = a[row] * (q . v[row]) + b[row] of every (query, row) pair,
 // folded to 128 candidates per query: candidate `lane` is the row with the
 // smallest rank among the group's rows at offset == lane (mod 128), equal
@@ -38,11 +41,13 @@
 // memory: no scale argument, the 127x scale is folded into (a, b).
 //
 // Core B, F32Scan: f32 FMAs on the CUDA cores. A thread owns one lane and
-// keeps 4 rows of it (lane + 128 jj) x 16 queries in registers: per 4
+// keeps RJ = 4 rows of it (lane + 128 jj) x 16 queries in registers: per 4
 // dimensions it makes 4 row reads and 16 query broadcasts (16-byte shared
 // loads) for 256 FMAs, so the FMA pipe and not shared memory is the limit.
 // A block of 256 threads is two such halves over the same 512 rows and 32
-// queries (a block of 128 threads serves tiles of at most 16 queries).
+// queries (a block of 128 threads serves tiles of at most 16 queries). The
+// partition scan, whose tiles hold a few queries, takes RJ = 2: half the
+// FMAs a row read, half the ring.
 //
 // Staging, both cores: rows AND queries stream through a ring of K-slices
 // (128 bytes of every row a slice; 4 stages in core A, 3 in core B), so a
@@ -63,10 +68,13 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
 
 #include <type_traits>
-
-#include "rank_scan.cuh"
 
 // Switches of bench/scan_ablation.py, which times the scans with one part
 // of a core cut out (the results are then wrong by design). None is defined
@@ -90,6 +98,19 @@
 #endif
 
 namespace vst {
+
+constexpr int LANES = 128;  // candidates a group: one per row offset mod 128
+
+// storage types; I8 rows are scanned by bf16 queries (grouped scan only)
+enum DType : int { F32 = 0, F16 = 1, BF16 = 2, I8 = 3 };
+
+// Raise the dynamic shared-memory limit of `kernel` when a block needs more
+// than the default 48 KB.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -458,16 +479,17 @@ struct TensorScan {
 // -- core B: f32 on the CUDA cores ---------------------------------------------------
 
 // GROUPS: thread groups of 128 (one thread a lane) a block; each group
-// takes 16 of the block's queries over the same rows.
-template <int GROUPS>
+// takes 16 of the block's queries over the same rows. RJ_: rows of its lane
+// a thread keeps (4 or 2), RJ_ x 128 the rows of a pass.
+template <int GROUPS, int RJ_ = 4>
 struct F32Scan {
   static constexpr int THREADS = GROUPS * LANES;
   static constexpr int NQ = 16;                // queries a thread
   static constexpr int NQ_TILE = GROUPS * NQ;  // queries a block
-  static constexpr int RJ = 4;                 // rows a thread: lane + 128 jj
+  static constexpr int RJ = RJ_;               // rows a thread: lane + 128 jj
   static constexpr int KS = 32;                // dimensions a slice: 128 bytes a row
   static constexpr int PASS_ROWS = RJ * LANES;
-  static constexpr int BOX_ROWS = 256;  // the most rows a TMA box takes
+  static constexpr int BOX_ROWS = LANES;  // rows a TMA box: a lane group
   static constexpr int STAGES = 3, AHEAD = STAGES - 1;
   static constexpr int STAGE_BYTES = (PASS_ROWS + NQ_TILE) * KS * 4;
   using Ring = vst::Ring<STAGES, STAGE_BYTES>;
@@ -490,17 +512,18 @@ struct F32Scan {
   }
 
   // Start the copies of the group's slice `nxt` (slice kn of pass pn) into
-  // its stage, if the group has that many, and step (pn, kn) on. Rows of
-  // the boxes past the group's last row are never read; coordinates past dp
-  // or past the last query read zeros.
+  // its stage, if the group has that many, and step (pn, kn) on. A pass
+  // shorter than PASS_ROWS (the group's last) copies only its own lane
+  // groups; coordinates past dp or past the last query read zeros.
   __device__ __forceinline__ static void prefetch(const Ring& ring, const Source& src, int64_t row0,
-                                                  int64_t q_row0, int nxt, int total, int& pn, int& kn, int nk) {
+                                                  int nrows, int64_t q_row0, int nxt, int total, int& pn,
+                                                  int& kn, int nk) {
     if (nxt < total && threadIdx.x == 0) {
       const uint32_t bar = ring.barrier(ring.consumed + nxt), dst = smem_u32(ring.stage(ring.consumed + nxt));
       const int row = (int)(row0 + (int64_t)pn * PASS_ROWS);
-      mbarrier_expect(bar, STAGE_BYTES);
-#pragma unroll
-      for (int u = 0; u < PASS_ROWS / BOX_ROWS; ++u)
+      const int boxes = min(PASS_ROWS, nrows - pn * PASS_ROWS) / BOX_ROWS;
+      mbarrier_expect(bar, (boxes * BOX_ROWS + NQ_TILE) * KS * 4);
+      for (int u = 0; u < boxes; ++u)
         tma_load_2d(dst + u * (BOX_ROWS * KS * 4), &src.rows_map, kn * KS, row + u * BOX_ROWS, bar);
       tma_load_2d(dst + PASS_ROWS * KS * 4, &src.queries_map, kn * KS, (int)q_row0, bar);
     }
@@ -542,7 +565,7 @@ struct F32Scan {
 
     __syncthreads();  // the ring is free (a block may scan several groups)
     int pn = 0, kn = 0;  // pass and slice of the next slice to prefetch
-    for (int i = 0; i < AHEAD; ++i) prefetch(ring, src, row0, q_row0, i, total, pn, kn, nk);
+    for (int i = 0; i < AHEAD; ++i) prefetch(ring, src, row0, nrows, q_row0, i, total, pn, kn, nk);
 
     float acc[RJ][NQ], best[NQ], ra[RJ], rb[RJ];
     int best_row[NQ];
@@ -558,7 +581,7 @@ struct F32Scan {
       const uint32_t slice = ring.consumed + i;
       ring.wait(slice);
       __syncthreads();  // everyone saw it land, and slice i - 1 is consumed
-      prefetch(ring, src, row0, q_row0, i + AHEAD, total, pn, kn, nk);
+      prefetch(ring, src, row0, nrows, q_row0, i + AHEAD, total, pn, kn, nk);
       const int nj = min(RJ, (nrows - p * PASS_ROWS) / LANES);  // lane groups of this pass
       if (k == nk - 1) {  // the pass's coefficients, on their way during its last slice
 #pragma unroll
@@ -572,8 +595,8 @@ struct F32Scan {
       const float* vs = stage + lane * KS;
       const float* qs = stage + (PASS_ROWS + group * NQ) * KS;
       if (VST_PRODUCT(dp)) switch (nj) {
-        case 4: dot_slice<4>(vs, qs, lane & 7, acc); break;
-        case 3: dot_slice<3>(vs, qs, lane & 7, acc); break;
+        case 4: if constexpr (RJ >= 4) dot_slice<4>(vs, qs, lane & 7, acc); break;
+        case 3: if constexpr (RJ >= 3) dot_slice<3>(vs, qs, lane & 7, acc); break;
         case 2: dot_slice<2>(vs, qs, lane & 7, acc); break;
         default: dot_slice<1>(vs, qs, lane & 7, acc);
       }

@@ -74,13 +74,16 @@ LOCAL_RESERVE_INCREMENT = 1_000
 
 # Directory/masked crossover. On the H100 both paths grow with the batch
 # (the masked scan is a product of the batch with the whole capacity); at
-# B = 2048 a (query, row) of the masked scan costs 0.23 of one of the
-# directory's (1M rows, pmax 1024, BF16, k 10, on an H100; PERF.md), and at
-# smaller batches the masked scan's fixed cost favours the directory more.
-# So the directory serves while pmax <= PART_CROSSOVER * capacity, whatever
-# the batch; the JAX package's TPU rule (B * pmax <= 3 * capacity) read the
-# table once a batch.
-PART_CROSSOVER = 0.23
+# B = 2048 a (query, row) of the masked scan costs 0.27 of one of the
+# directory's (1M rows, pmax 1024, BF16, k 10; chip_smoke.py phase 3 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, with the partition scan that reads a
+# bucket once a tile: 0.291 and 0.247 in two runs, their mean; 0.220-0.245
+# with the scan before it; PERF.md), and at smaller batches the masked
+# scan's fixed cost favours the directory more. So the directory serves
+# while pmax <= PART_CROSSOVER * capacity, whatever the batch; the JAX
+# package's TPU rule (B * pmax <= 3 * capacity) read the table once a
+# batch.
+PART_CROSSOVER = 0.27
 
 
 @dataclass

@@ -3,7 +3,7 @@
 The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
 ``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, loaded with ctypes. They need
-``nvcc`` and the CUDA runtime only: the fused and grouped scans stage their
+``nvcc`` and the CUDA runtime only: the scans stage their
 operands by TMA, and the tensor maps are encoded by a libcuda function that
 the runtime looks up (``cudaGetDriverEntryPoint``), so nothing links libcuda
 itself and no other header tree is included. The build
@@ -35,7 +35,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-# storage dtype -> csrc/rank_scan.cuh DType (int8: I8 rows, scanned by bf16
+# storage dtype -> csrc/hopper_scan.cuh DType (int8: I8 rows, scanned by bf16
 # queries in the grouped scan only)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8: 3}
 
@@ -44,7 +44,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8
 _ENTRY_POINTS = {
     "vst_fused_scan": (6, 6),
     "vst_grouped_scan": (6, 7),
-    "vst_partition_scan": (7, 6),
+    "vst_partition_scan": (11, 7),
 }
 
 _lock = threading.Lock()
@@ -141,17 +141,21 @@ def library() -> ctypes.CDLL:
 
 
 def launch(
-    name: str, tensors: list[torch.Tensor], ints: list[int], lib: ctypes.CDLL | None = None
+    name: str, tensors: list[torch.Tensor | int], ints: list[int], lib: ctypes.CDLL | None = None
 ) -> None:
     """Call entry point ``name`` (of ``lib``; by default of ``library()``)
-    with the tensors' device pointers, the int arguments, the tensors'
-    device index and PyTorch's current stream on that device; raise if the
-    launch was refused."""
+    with the tensors' device pointers (an int is passed as a pointer as it
+    is: an address inside a tensor the caller holds), the int arguments,
+    the first tensor's device index and PyTorch's current stream on that
+    device; raise if the launch was refused. The stream comes from
+    ``torch._C._cuda_getCurrentRawStream``, the raw handle that Triton's
+    launcher reads too: building a ``torch.cuda.Stream`` object for it
+    took host time that a small batch's launch cannot spare."""
     lib = lib or library()
-    device = tensors[0].device
-    stream = torch.cuda.current_stream(device).cuda_stream
+    index = tensors[0].device.index or 0
     rc = getattr(lib, name)(
-        *[t.data_ptr() for t in tensors], *ints, device.index or 0, stream
+        *[t if isinstance(t, int) else t.data_ptr() for t in tensors], *ints, index,
+        torch._C._cuda_getCurrentRawStream(index),
     )
     if rc != 0:
         msg = lib.vst_error_string(rc).decode()
