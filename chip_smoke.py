@@ -69,6 +69,26 @@ failure:
    truth on the card (>= 0.90, printed beside the reference's 0.9594),
    self-queries and one CDC upsert found first at distance 0, and the
    int8 grouped scan launched during the requests.
+8. filtered service: a new service over filtered-1000k of
+   vector_store_tpu/benchkit/scale.py (SERVICE_ROWS clustered 128-d rows,
+   COSINE, F32, global, nprobe 32, one int filtering column ``bucket``
+   labelled as benchkit/suite.py's selectivity(): bucket b matches 50%,
+   10%, 1% or 0.1% of the rows; ingested row by row, since filtering
+   columns take the table's per-row path). For each bucket a cold and a
+   warm pass of 128 requests ``bucket == b`` at 128 in flight, limit 10:
+   QPS, p50, recall@10 against the exact filtered top-10 computed on the
+   card, the deltas of the actor's three filtered-path counters and the
+   scans' launches. 50% must stay on the post-filter ladder (recall >=
+   0.90); 10% must be device-masked with both scans launched (>= 0.90);
+   1% and 0.1% must take the grouped subset-exact terminal, the warm pass
+   with no scan at all (>= 0.99). Then a CDC insert into the 10% bucket and
+   one into the 0.1% bucket, each found first at distance 0. The smoke's
+   total wall time is printed last of all phases.
+
+Phase 3 also holds both scans under a slot filter against their plain
+versions (``b`` biased as the engines bias it; 10% and 0.1% of the rows
+allowed; a lane group, and a cluster, with no allowed row), F32 and BF16,
+each timed beside its unmasked reading.
 
 The last three lines of standard output are: one JSON object describing
 the kernels, the nvidia-smi name/power-limit line, and
@@ -104,6 +124,9 @@ RTOL = 1e-4
 I8_ROWS, I8_DIMS, I8_CENTERS = 1_000_000, 1536, 1024  # dbpedia-i8
 I8_RECALL_REFERENCE = 0.9594  # the JAX package's run of dbpedia-i8 (SCALE_RUNS.jsonl:21)
 G_SWEEP = (1, 2, 4, 8)
+MASK_FRACS = (0.1, 0.001)  # allowed shares of phase 3's masked scans
+SELECTIVITY = (0.5, 0.1, 0.01, 0.001)  # vector_store_tpu/benchkit/harness.py:25
+FILTERED_REQUESTS = FILTERED_IN_FLIGHT = 128  # filtered-1000k (benchkit/scale.py:416-449)
 # each kernel's time under the port's first scan core, before its redesign
 # for Hopper: ms at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W,
 # copied from PERF.md section 5 (that core's last full smoke run), not
@@ -241,6 +264,7 @@ def kernel_phase(device) -> list[dict]:
               f"{entry['plain_ms']:.3f} ms, product only {entry['product_only_ms']:.3f} ms, bound "
               f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), max |rank err| {err:.3g} "
               f"(tolerance {RTOL:g} * (1 + |r|))", flush=True)
+        entry["max_abs_err"] = max(err, masked_fused(q, v, a, b, block, entry["ms"], rng))
         out.append(entry)
     del v32, v, q
 
@@ -268,9 +292,12 @@ def kernel_phase(device) -> list[dict]:
             median_ms(lambda: ivf.grouped_scan_plain(q, v, a, b, s, cmax), reps=5),
             median_ms(lambda: grouped_product(q, v, s, cmax), reps=5),
         )
+        bnd = scan_bound(nlist * cmax, nlist * s, nlist * s * cmax, DIMS, dt, dt, nlist * s * fs.LANES)
         print(f"[kernels] grouped_scan {dt} nlist={nlist} cmax={cmax} s={s}: kernel "
-              f"{times[dt][0]:.3f} ms, plain {times[dt][1]:.3f} ms, max |rank err| {errs[-1]:.3g} (tolerance {RTOL:g} * (1 + |r|))",
-              flush=True)
+              f"{times[dt][0]:.3f} ms, plain {times[dt][1]:.3f} ms, product only {times[dt][2]:.3f} ms, bound "
+              f"{bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), max |rank err| {errs[-1]:.3g} (tolerance {RTOL:g} * "
+              "(1 + |r|))", flush=True)
+        errs.append(masked_grouped(q, v, a, b, s, cmax, times[dt][0], rng))
     entry.update(max_abs_err=max(errs), ms=times[torch.float32][0], plain_ms=times[torch.float32][1],
                  library_ms=None, product_only_ms=times[torch.float32][2],
                  **scan_bound(nlist * cmax, nlist * s, nlist * s * cmax, DIMS, torch.float32, torch.float32,
@@ -283,6 +310,86 @@ def kernel_phase(device) -> list[dict]:
     out.append(grouped_i8_kernel(device))
     edge_shapes(device)
     return out
+
+
+def random_allow(rng, n: int, frac: float, device) -> torch.Tensor:
+    """[n] bool: each slot allowed with probability ``frac``."""
+    return torch.from_numpy(rng.random(n) < frac).to(device)
+
+
+def masked_fused(q, v, a, b, block, unmasked_ms, rng) -> float:
+    """The fused scan under a slot filter, as the flat engine and the IVF
+    delta run it (``b`` biased by apply_allow_to_paux), against its plain
+    version: 10% and 0.1% of the rows allowed, and one lane group (block 3,
+    lane 5) with no allowed row, which must return its first row at
+    INVALID_BIAS. The same kernel reads the same bytes as unmasked, so its
+    time should match the unmasked one. Returns the max |rank err|."""
+    from vector_store_tpu_torch.ops import fused_scan as fs
+
+    cap, worst = v.shape[0], 0.0
+    dead = 3 * block + 5 + fs.LANES * torch.arange(block // fs.LANES, device=v.device)
+    col = 3 * fs.LANES + 5
+    for frac in MASK_FRACS:
+        allow = random_allow(rng, cap, frac, v.device)
+        allow[dead] = False
+        bm = fs.apply_allow_to_paux(b, allow)
+        rank, pos = fs.fused_scan(q, v, a, bm, block)
+        prank, ppos = fs.fused_scan_plain(q, v, a, bm, block)
+
+        def exact(qi, rows):
+            return a[rows] * (q[qi].float() * v[rows].float()).sum(-1) + bm[rows]
+
+        def group(qi, col, rows=None):
+            if rows is None:
+                return (col // fs.LANES) * block + col % fs.LANES
+            return (rows // block) * block + rows % fs.LANES
+
+        err = compare(f"fused_scan/masked {frac:g}/{q.dtype}", rank, pos, prank, ppos, exact, group)
+        check(bool((rank[:, col] == fs.INVALID_BIAS).all()) and torch.equal(pos[:, col], ppos[:, col]),
+              f"fused_scan/masked {frac:g}/{q.dtype}: the lane group with no allowed row did not return its "
+              "first row at INVALID_BIAS")
+        live = int((bm < fs.INVALID_CUTOFF).sum())
+        del rank, pos, prank, ppos
+        ms = median_ms(lambda: fs.fused_scan(q, v, a, bm, block))
+        print(f"[kernels] fused_scan {q.dtype} masked, {frac:.1%} allowed ({live:,} live rows): kernel {ms:.3f} ms "
+              f"(unmasked {unmasked_ms:.3f} ms), max |rank err| {err:.3g}; a lane group with no allowed row held",
+              flush=True)
+        worst = max(worst, err)
+    return worst
+
+
+def masked_grouped(q, v, a, b, s, cmax, unmasked_ms, rng) -> float:
+    """The grouped scan under a slot filter, as the IVF main region runs it
+    (``b`` biased through the position -> slot map by the engine's
+    _apply_allow_main), against its plain version: 10% and 0.1% of the
+    slots allowed, and one cluster (7) with no allowed row, whose queries
+    must get their first rows at INVALID_BIAS. Returns the max |rank
+    err|."""
+    from vector_store_tpu_torch.engine.ivf import _apply_allow_main
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+
+    npos = v.shape[0]
+    pos2slot = torch.where(b < fs.INVALID_CUTOFF, torch.arange(npos, device=v.device, dtype=torch.int32), -1)
+    worst = 0.0
+    for frac in MASK_FRACS:
+        allow = random_allow(rng, npos, frac, v.device)
+        allow[7 * cmax : 8 * cmax] = False
+        bm = _apply_allow_main(b, pos2slot, allow)
+        exact, group = grouped_oracle(q, v, a, bm, s, cmax)
+        rank, pos = ivf.grouped_scan(q, v, a, bm, s, cmax)
+        prank, ppos = ivf.grouped_scan_plain(q, v, a, bm, s, cmax)
+        err = compare(f"grouped_scan/masked {frac:g}/{q.dtype}", rank, pos, prank, ppos, exact, group)
+        dead = slice(7 * s, 8 * s)
+        check(bool((rank[dead] == fs.INVALID_BIAS).all()) and torch.equal(pos[dead], ppos[dead]),
+              f"grouped_scan/masked {frac:g}/{q.dtype}: the cluster with no allowed row did not return its first "
+              "rows at INVALID_BIAS")
+        del rank, pos, prank, ppos
+        ms = median_ms(lambda: ivf.grouped_scan(q, v, a, bm, s, cmax))
+        print(f"[kernels] grouped_scan {q.dtype} masked, {frac:.1%} allowed: kernel {ms:.3f} ms (unmasked "
+              f"{unmasked_ms:.3f} ms), max |rank err| {err:.3g}; a cluster with no allowed row held", flush=True)
+        worst = max(worst, err)
+    return worst
 
 
 def edge_shapes(device) -> None:
@@ -1010,7 +1117,170 @@ async def i8_phase(device, card: str) -> int:
         await service.stop()
 
 
+def bucket_labels(rng, n: int) -> np.ndarray:
+    """suite.selectivity's labelling: each row draws u in [0, 1) and takes
+    the bucket whose cumulative band holds it, so bucket b matches
+    SELECTIVITY[b] of the rows (-1: none of them)."""
+    labels = np.full(n, -1, dtype=np.int64)
+    u = rng.random(n)
+    acc = 0.0
+    for bi, frac in enumerate(SELECTIVITY):
+        labels[(u >= acc) & (u < acc + frac)] = bi
+        acc += frac
+    return labels
+
+
+async def filtered_phase(device, card: str) -> dict:
+    """Phase 8: filtered-1000k of vector_store_tpu/benchkit/scale.py served
+    over HTTP; returns the scans' launches of the 10% bucket's warm pass
+    (the device-masked regime)."""
+    import aiohttp
+
+    from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+    from vector_store_tpu_torch.run import serve
+    from vector_store_tpu_torch.service.config import Config
+
+    rng = np.random.default_rng(SEED + 8)
+    n = SERVICE_ROWS
+    data = clustered_rows(rng, n)
+    labels = bucket_labels(rng, n)
+    pick = rng.integers(0, n, size=FILTERED_REQUESTS)
+    queries = data[pick] + rng.standard_normal((FILTERED_REQUESTS, DIMS), dtype=np.float32) * np.float32(
+        0.1 / np.sqrt(DIMS)
+    )
+    data_dev, q_dev = torch.from_numpy(data).to(device), torch.from_numpy(queries).to(device)
+    gt = {}
+    for bi in range(len(SELECTIVITY)):
+        allowed = np.flatnonzero(labels == bi)
+        gt[bi] = allowed[exact_top_k(data_dev[torch.from_numpy(allowed).to(device)], q_dev, K)]
+    del data_dev, q_dev
+    torch.cuda.empty_cache()
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl4", ("pk",), columns={"bucket": "int"}))
+    metadata = make_vs_metadata(index="fidx", table="tbl4", dimensions=DIMS,
+                                filtering_columns=("bucket",))  # COSINE, F32, global
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (
+        vector_row((i,), data[i], 100, filtering=[(100, int(labels[i]))]) for i in range(n))))
+    port = free_port()
+
+    t0 = time.perf_counter()
+    service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
+    try:
+        async with aiohttp.ClientSession() as http:
+            client = Http(http, f"http://127.0.0.1:{port}/api/v1/indexes/ks/fidx")
+            await client.wait_for(lambda: client.counted(n), f"{n} rows", timeout=900)
+            ingest_s = time.perf_counter() - t0
+            actor = service.indexes.get_vs(metadata.key).actor
+            engine = actor.engine
+
+            async def built() -> bool:
+                return engine.nlist > 0 and engine.maintain_pending() is None
+
+            await client.wait_for(built, "the IVF build to swap in and settle")
+            print(f"[filtered] {n} rows (buckets of {', '.join(f'{f:.1%}' for f in SELECTIVITY)}: "
+                  f"{', '.join(str(int((labels == b).sum())) for b in range(len(SELECTIVITY)))} rows) ingested "
+                  f"row by row in {ingest_s:.1f} s; IVF nlist={engine.nlist} cmax={engine.cmax} "
+                  f"main={engine._main_rows} delta={engine._delta.size}; settled "
+                  f"{time.perf_counter() - t0 - ingest_s:.1f} s later", flush=True)
+
+            async def counters() -> dict:
+                async with http.get(f"http://127.0.0.1:{port}/api/internals/counters") as resp:
+                    return await resp.json()
+
+            def only(value: int) -> dict:
+                return {"filter": {"restrictions": [{"type": "==", "lhs": "bucket", "rhs": value}],
+                                   "allow_filtering": True}}
+
+            names = ("masked_dispatches", "exact_host_fallbacks", "oversample_escalations")
+            masked_launches = {}
+            for bi, frac in enumerate(SELECTIVITY):
+                for label in ("cold", "warm"):
+                    before = await counters()
+                    # -- this pass of the filtered path, counted ---------------
+                    fs.fused_scan.launches = 0
+                    ivf.grouped_scan.launches = 0
+                    sem = asyncio.Semaphore(FILTERED_IN_FLIGHT)
+                    lat: list[float] = []
+
+                    async def one(q, bi=bi):
+                        async with sem:
+                            t = time.perf_counter()
+                            res = await client.ann(q, K, **only(bi))
+                            lat.append(time.perf_counter() - t)
+                            return res["primary_keys"]["pk"]
+
+                    t1 = time.perf_counter()
+                    got = await asyncio.gather(*(one(q) for q in queries))
+                    wall = time.perf_counter() - t1
+                    launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan": ivf.grouped_scan.launches}
+                    after = await counters()
+                    delta = {k: after.get(f"vs_index_{k}", 0) - before.get(f"vs_index_{k}", 0) for k in names}
+                    check(all((labels[g] == bi).all() for g in got), f"bucket {frac:.1%}: a key outside the bucket")
+                    recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt[bi])]))
+                    print(f"[filtered] bucket {frac:.1%} {label}: {FILTERED_REQUESTS / wall:.0f} QPS, p50 "
+                          f"{1e3 * statistics.median(lat):.1f} ms at {FILTERED_IN_FLIGHT} in flight, recall@{K} "
+                          f"{recall:.4f}; counters {delta}; launches {launches}", flush=True)
+                    if frac >= 0.5:  # the ladder
+                        check(delta["masked_dispatches"] == 0 and delta["exact_host_fallbacks"] == 0,
+                              f"bucket {frac:.1%} {label} left the ladder: {delta}")
+                        check(recall >= RECALL_MIN, f"bucket {frac:.1%} recall@{K} {recall:.4f} < {RECALL_MIN}")
+                    elif frac >= 1 / 32:  # the device-masked scan
+                        check(delta["masked_dispatches"] > 0, f"bucket {frac:.1%} {label} was never masked: {delta}")
+                        check(all(v > 0 for v in launches.values()),
+                              f"bucket {frac:.1%} {label}: a scan of the masked path never launched: {launches}")
+                        check(recall >= RECALL_MIN, f"bucket {frac:.1%} recall@{K} {recall:.4f} < {RECALL_MIN}")
+                        if label == "warm":
+                            masked_launches = launches
+                    else:  # the grouped subset-exact terminal
+                        check(delta["exact_host_fallbacks"] > 0, f"bucket {frac:.1%} {label} never took the "
+                              f"terminal: {delta}")
+                        if label == "warm":
+                            check(delta["exact_host_fallbacks"] == FILTERED_REQUESTS and not any(launches.values()),
+                                  f"bucket {frac:.1%} warm: {delta}, launches {launches}")
+                        check(recall >= 0.99, f"bucket {frac:.1%} recall@{K} {recall:.4f} < 0.99")
+
+            # the masked regime's device state, made anew from the same mask
+            check(len(actor._allow_cache) == 1, f"{len(actor._allow_cache)} filters promoted to the mask, not 1")
+            sig, (_, handle) = next(iter(actor._allow_cache.items()))
+            fresh = engine.upload_allow_mask(handle.host)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fresh.masked_b(engine)
+            torch.cuda.synchronize()
+            print(f"[filtered] the 10% bucket's handle ({int(handle.host.sum()):,} allowed slots) made its device "
+                  f"mask and masked bias in {1e3 * (time.perf_counter() - t2):.2f} ms (host clock around "
+                  f"synchronize)", flush=True)
+            del fresh
+
+            # two CDC inserts at a query point, each found first at distance 0:
+            # a 10% row through a rebuilt mask, a 0.1% row through a refreshed
+            # match set
+            for i, bi in enumerate((1, len(SELECTIVITY) - 1)):
+                new = clustered_rows(rng, 1)[0]
+                before = await counters()
+                await db.db_indexes[metadata.key].push_cdc(
+                    vector_row((n + i,), new, 200, filtering=[(200, bi)]))
+                await client.wait_for(lambda i=i: client.counted(n + 1 + i), "the CDC row", timeout=60)
+                res = await client.ann(new, 3, **only(bi))
+                check(res["primary_keys"]["pk"][0] == n + i and abs(res["distances"][0]) <= 1e-6,
+                      f"the CDC row of bucket {SELECTIVITY[bi]:.1%} was not found first at distance 0: {res}")
+                after = await counters()
+                regime = "masked_dispatches" if bi == 1 else "exact_host_fallbacks"
+                check(after.get(f"vs_index_{regime}", 0) > before.get(f"vs_index_{regime}", 0),
+                      f"the CDC row of bucket {SELECTIVITY[bi]:.1%} was not served by {regime}")
+            check(actor._allow_cache[sig][1] is not handle, "the 10% bucket's mask was not rebuilt after a write")
+            print(f"[filtered] CDC inserts into the 10% and the 0.1% buckets found first at distance 0 (a rebuilt "
+                  f"mask, a refreshed match set); smoke readings on {card}", flush=True)
+            return masked_launches
+    finally:
+        await service.stop()
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
     device = torch.device("cuda", 0)
     card = card_line()
@@ -1049,6 +1319,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     host_line("the I8 service")
     launches["grouped_scan_i8"] = asyncio.run(i8_phase(device, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the filtered service")
+    masked = asyncio.run(filtered_phase(device, card))
+    print(f"[filtered] launches during the 10% bucket's warm pass (the device-masked path): {masked}", flush=True)
+    print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": [{k: e[k] for k in (

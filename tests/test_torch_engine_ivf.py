@@ -14,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from torch_parity import to_jax  # noqa: E402
+from torch_parity import jax_state, to_jax  # noqa: E402
 from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
 from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex  # noqa: E402
 
@@ -60,29 +60,6 @@ def port_index(space, **kw):
         initial_capacity=4096, min_build=1024, kmeans_block=1024, nprobe=16,
         kmeans_iters=4, scan_block_rows=DELTA_BLOCK, **kw,
     )
-
-
-def jax_state(j) -> dict:
-    return {
-        "main_vecs": np.asarray(j.main_vecs),
-        "main_paux": np.asarray(j.main_paux),
-        "main_pos2slot": np.asarray(j.main_pos2slot),
-        "centroids": np.asarray(j.centroids),
-        "nlist": j.nlist,
-        "cmax": j.cmax,
-        "_region": j._region,
-        "_pos": j._pos,
-        "_epochs_host": j._epochs_host,
-        "_valid_host": j._valid_host,
-        "_vecs_host": j._vecs_host,
-        "_delta_pos2slot_host": j._delta_pos2slot_host,
-        "_delta_next": j._delta_next,
-        "_delta_free": j._delta_free,
-        "delta_vectors": np.asarray(j._delta.vectors),
-        "delta_paux": np.asarray(j._delta.paux),
-        "delta_valid": np.asarray(j._delta.valid),
-        "delta_epochs": np.asarray(j._delta.epochs),
-    }
 
 
 def assert_same_results(got, want):
@@ -171,3 +148,30 @@ def test_exact_host_and_unported_paths():
         idx.search(vecs[:1], 1, partitions=np.array([3]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IvfDeviceIndex(D, quantization=Quantization.B1, device=CPU)
+
+
+def test_rows_written_mid_build_make_the_next_rebuild_due():
+    """The rebuild floor: the rows of the delta right after a swap are that
+    build's own spill; rows written during the build re-enter the delta
+    after the swap and count as growth. More of them than
+    max(kmeans_block, rebuild_fraction * live) make a rebuild due at once
+    (the JAX engine raised its floor over them, and a first build that
+    overlapped a long ingest left most rows in the delta for good)."""
+    idx = port_index(SpaceType.EUCLIDEAN)
+    idx.upsert_batch(np.arange(N), np.full(N, 5, np.int32), clustered(N, D))
+    assert idx.maintain_pending() == "start"
+    idx.maintain(budget=1)  # the snapshot
+    m = 2000
+    idx.upsert_batch(np.arange(N, N + m), np.full(m, 6, np.int32), clustered(m, D, seed=5))
+    assert m > max(idx.kmeans_block, idx.rebuild_fraction * idx.size)
+    while idx._build is not None:
+        idx.maintain(budget=1)
+    floor = idx._rebuild_floor
+    assert floor == idx._delta_live() and idx.maintain_pending() == "reenter"
+    while idx.maintain_pending() == "reenter":
+        idx.maintain(budget=1)
+    assert idx._delta_live() - floor >= m
+    assert idx.maintain_pending() == "start"
+    idx.maintain()
+    assert idx._main_rows >= 0.8 * idx.size and idx._delta_live() < m
+    assert idx.maintain_pending() is None

@@ -56,6 +56,7 @@ from vector_store_tpu_torch.ops.fused_scan import (
     INVALID_BIAS,
     INVALID_CUTOFF,
     LANES,
+    apply_allow_to_paux,
     block_rows_for,
     paux_coeffs,
     rank_search,
@@ -120,6 +121,10 @@ class PendingSearch:
     rows: torch.Tensor | None = None
     q_f32: np.ndarray | None = None  # [B, D] normalized f32 queries
     is_dist: bool = False  # raw ``packed`` holds true distances (I8)
+    # the IVF engine's slot filter as its scans read it (the main region's
+    # masked bias, the delta's position mask), for a retry of the batch
+    main_b: torch.Tensor | None = None
+    delta_allow: torch.Tensor | None = None
 
 
 def pull_packed(t: torch.Tensor) -> np.ndarray:
@@ -704,9 +709,28 @@ class FlatDeviceIndex:
         return qs.to(self.device)
 
     def search(
-        self, queries: np.ndarray, k: int, partitions: np.ndarray | None = None
+        self,
+        queries: np.ndarray,
+        k: int,
+        partitions: np.ndarray | None = None,
+        allow_mask: np.ndarray | None = None,
     ) -> list[SearchResult]:
-        return self.search_collect(self.search_begin(queries, k, partitions))
+        return self.search_collect(self.search_begin(queries, k, partitions, allow_mask))
+
+    def masked_bias(self, allow_mask: np.ndarray | torch.Tensor) -> torch.Tensor:
+        """``b`` with every slot that ``allow_mask`` does not allow biased to
+        INVALID_BIAS, so that the scans never rank those rows (the JAX
+        package's apply_allow_to_paux). The mask is a host [n] bool array
+        (slots past its end are not allowed) or a [capacity] bool tensor on
+        this index's device. A new tensor; ``self.b`` is untouched."""
+        if isinstance(allow_mask, torch.Tensor):
+            if tuple(allow_mask.shape) != (self.capacity,):
+                raise ValueError(f"a device allow mask must hold {self.capacity} slots")
+            return apply_allow_to_paux(self.b, allow_mask)
+        allow_mask = np.asarray(allow_mask, dtype=bool)
+        am = np.zeros((self.capacity,), dtype=bool)
+        am[: allow_mask.shape[0]] = allow_mask[: self.capacity]
+        return apply_allow_to_paux(self.b, torch.from_numpy(am).to(self.device))
 
     @hotpath.measure
     def search_begin(
@@ -714,6 +738,7 @@ class FlatDeviceIndex:
         queries: np.ndarray,
         k: int,
         partitions: np.ndarray | None = None,  # [B] partition slots (-1 = all)
+        allow_mask: np.ndarray | torch.Tensor | None = None,  # bool slot filter
         raw: bool = False,
         queries_dev: torch.Tensor | None = None,
     ) -> PendingSearch:
@@ -721,7 +746,10 @@ class FlatDeviceIndex:
         keeps the rank values (kind "rank") for the IVF engine's region
         merge; queries_dev is an already device-resident [B, Dp] query
         tensor (the IVF engine shares one upload across its two regions).
-        With ``partitions`` each query sees only its partition's rows. An
+        With ``partitions`` each query sees only its partition's rows. With
+        ``allow_mask`` only the slots it allows are ranked (the scans read
+        a copy of ``b`` that biases the others out); the partition
+        directory serves only unmasked searches, as in the JAX package. An
         I8 index ranks by the integer scan and the rescore tier; its raw
         form holds true distances (``is_dist``), not rank values."""
         self._require_unpartitioned_i8(partitions)
@@ -730,18 +758,23 @@ class FlatDeviceIndex:
             queries = normalize_rows(queries)
         qs = self.query_tensor(queries) if queries_dev is None else queries_dev
         b_real = queries.shape[0]
+        b = self.b if allow_mask is None else self.masked_bias(allow_mask)
         if partitions is not None:
             if raw:
                 raise ValueError("a partitioned search has no raw form")
-            ids = self._partitioned_ids(qs, np.asarray(partitions, dtype=np.int64), k)
+            psel = np.asarray(partitions, dtype=np.int64)
+            if allow_mask is None:
+                ids = self._partitioned_ids(qs, psel, k)
+            else:
+                ids = self._masked_scan(qs, torch.from_numpy(psel.astype(np.int32)).to(self.device), k, b)
             return PendingSearch(packed=ids, b_real=b_real, k=k, q_f32=queries)
         if self.quantization is Quantization.I8:
-            dist, rows = self._i8_search(queries, qs, k)
+            dist, rows = self._i8_search(queries, qs, k, b)
             if raw:
                 return PendingSearch(packed=dist, rows=rows, b_real=b_real, k=k, is_dist=True)
             return PendingSearch(packed=rows, b_real=b_real, k=k, q_f32=queries)
         rank, rows = rank_search(
-            self.vectors, self.a, self.b, qs, k=k, block_rows=self.block_rows
+            self.vectors, self.a, b, qs, k=k, block_rows=self.block_rows
         )
         if raw:
             return PendingSearch(packed=rank, rows=rows, b_real=b_real, k=k)
@@ -807,13 +840,19 @@ class FlatDeviceIndex:
         return out
 
     def _flat_search(
-        self, qs: torch.Tensor, k: int, psel: torch.Tensor | None = None
+        self,
+        qs: torch.Tensor,
+        k: int,
+        psel: torch.Tensor | None = None,
+        b: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Exact scan of the whole capacity (the JAX package's
         _flat_search), block by block: [B, block_rows] storage-precision
         distances per step and a running top-k; ``psel`` [B] masks each
-        query to its partition (-1 = every partition). Returns (dist [B, k]
-        f32 ascending, inf for empty; slot [B, k] i32 or -1)."""
+        query to its partition (-1 = every partition); rows whose bias (``b``,
+        by default ``self.b``) is INVALID_BIAS are skipped. Returns (dist
+        [B, k] f32 ascending, inf for empty; slot [B, k] i32 or -1)."""
+        b = self.b if b is None else b
         nq = qs.shape[0]
         q_aux = vector_aux(qs, self.space_type, self.quantization)
         best_d = torch.full((nq, k), float("inf"), device=self.device)
@@ -824,7 +863,7 @@ class FlatDeviceIndex:
             d = pairwise_distance(
                 qs, vb, self.space_type, self.quantization, q_aux, self.aux[lo:hi]
             )
-            keep = (self.b[lo:hi] < INVALID_CUTOFF)[None, :]
+            keep = (b[lo:hi] < INVALID_CUTOFF)[None, :]
             if psel is not None:
                 keep = keep & (
                     (psel[:, None] < 0) | (self.parts[lo:hi][None, :] == psel[:, None])
@@ -834,10 +873,12 @@ class FlatDeviceIndex:
             best_d, best_i = merge_min_k(best_d, best_i, bd, (bi + lo).to(torch.int32))
         return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
 
-    def _masked_scan(self, qs: torch.Tensor, psel: torch.Tensor, k: int) -> torch.Tensor:
+    def _masked_scan(
+        self, qs: torch.Tensor, psel: torch.Tensor, k: int, b: torch.Tensor | None = None
+    ) -> torch.Tensor:
         """[B, k] i32 winner slots of the exact scan with a per-query
         partition mask (the JAX package's _flat_search with use_parts)."""
-        return self._flat_search(qs, k, psel)[1]
+        return self._flat_search(qs, k, psel, b)[1]
 
     def _rescore_stage(
         self,
@@ -871,13 +912,13 @@ class FlatDeviceIndex:
         return out_d, out_i
 
     def _i8_search(
-        self, queries: np.ndarray, qs: torch.Tensor, k: int
+        self, queries: np.ndarray, qs: torch.Tensor, k: int, b: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """I8 search of [B, D] (normalized) f32 queries, ``qs`` their I8
-        codes on the device: the integer scan fetches oversample x k
-        candidates and the rescore tier keeps k (with rescoring off, the
-        scan's k in storage precision)."""
-        dist, rows = self._flat_search(qs, min(k * self.oversample, self.capacity))
+        codes on the device, over the rows whose bias ``b`` is valid: the
+        integer scan fetches oversample x k candidates and the rescore tier
+        keeps k (with rescoring off, the scan's k in storage precision)."""
+        dist, rows = self._flat_search(qs, min(k * self.oversample, self.capacity), b=b)
         if not self.rescore:
             return dist[:, :k], rows[:, :k]
         rqs, rq_aux = prepare_queries(queries, self.space_type, Quantization.BF16)

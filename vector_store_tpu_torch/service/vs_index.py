@@ -13,17 +13,25 @@ per kernel launch, so the actor's core is a micro-batching loop:
   collector task pulls finished batches;
 - the engine's rebuild runs as background slices alongside searches, with
   only its swap and re-entry slices exclusive;
-- filtered search post-filters an oversampled result set against the
-  table, growing the oversample until satisfied, then falls back to an
-  exact host scan;
+- filtered search on a global index takes one of three regimes, chosen by
+  the density of the filter's match set (S matching rows of N):
+  the post-filter ladder (an oversampled result set is filtered against
+  the table, the oversample growing 1 -> 4 -> 16 -> 64, and the step a
+  filter needed is remembered for its next queries); the device-masked
+  scan, for a filter the ladder proved costly (step >= 16) while
+  S >= N/32 (the filter becomes an allow-mask handle on the device and
+  the IVF scans rank only matching rows); and the grouped subset-exact
+  terminal, for S*64 < N or a filter that exhausted the ladder (one exact
+  host pass over the match set for every query of a group). Match sets are
+  cached per filter and stamped with the table's mutation count;
 - adds are dropped when the memory governor says Cannot (usearch.rs:1156).
 
 Engine choice: global F32/F16/BF16/I8 indexes get the IVF engine ("auto"
 or "ivf") or the flat engine ("flat"); local (per-partition) F32/F16/BF16
-indexes always get the flat engine, whose partition directory serves a
-query naming its partition (the JAX package's choice). Every other kind
-raises NotImplementedError naming its ROADMAP.md entry; no other engine
-stands in.
+indexes get the flat engine whatever the kind says (its partition
+directory serves a query naming its partition; the JAX package's choice).
+Every other kind raises NotImplementedError naming its ROADMAP.md entry;
+no other engine stands in.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import math
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -60,7 +69,7 @@ from vector_store_tpu_torch.engine.flat import (
     FlatDeviceIndex,
     SearchResult,
 )
-from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex, ivf_supports
+from vector_store_tpu_torch.engine.ivf import AllowMaskHandle, IvfDeviceIndex, ivf_supports
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +81,22 @@ MERGE_BATCH = 4096
 MODIFY_MAX_AGE_S = 0.10
 OVERSAMPLE_STEPS = (4, 16, 64)
 MAX_INFLIGHT = 4  # dispatched batches awaiting their pull
+LADDER_CACHE_MAX = 4096  # learned oversample steps (per filter)
+MATCH_CACHE_MAX = 128  # cached exact match sets (per filter)
+# ...and a byte bound: a dense match set is selectivity * N int64s (4 MB at
+# 50% of 1M rows), so a count alone could hold hundreds of MB
+MATCH_CACHE_MAX_BYTES = 64 << 20
+# a filter whose learned step reached this is costly on the ladder: its
+# match set is computed once and later queries are filtered on the device
+MASKED_MIN_STEP = 16
+# ...while the match set is dense enough that the probed clusters still
+# hold the limit's true neighbours among matching rows: below 1/32 of the
+# table the grouped subset-exact terminal is exact and cheaper
+MASKED_MIN_DENOM = 32
+ALLOW_CACHE_MAX = 8  # device allow-mask handles (per filter)
+# a masked query fetches limit * 2: every candidate already matches, so the
+# headroom covers removed or stale rows only
+MASKED_OVERSAMPLE = 2
 EXCLUSIVE_SLICES = ("swap", "reenter")  # maintenance that mutates serving state
 
 
@@ -97,13 +122,17 @@ def make_engine(
             "local (per-partition) I8 indexes are not ported yet (ROADMAP.md, "
             "port queue: local I8 and B1/Hamming)"
         )
+    if is_local and (engine_kind in ("auto", "ivf", "graph") or engine_kind.endswith("-sharded")):
+        # local indexes stay on one card's flat engine (the JAX package's
+        # routing: the IVF, graph and sharded engines are global-index paths)
+        engine_kind = "flat"
     if engine_kind not in ("auto", "ivf", "flat"):
         raise NotImplementedError(
             f"engine {engine_kind!r} is not ported yet (ROADMAP.md, port queue: "
             "graph engine, sharded engines, simulator/opensearch)"
         )
     rescoring = vs.rescoring is not False
-    if engine_kind == "flat" or is_local:
+    if engine_kind == "flat":
         return FlatDeviceIndex(
             int(vs.dimensions),
             space_type=vs.space_type,
@@ -133,6 +162,14 @@ class _SearchRequest:
     future: asyncio.Future
     oversample: int = 1  # grows on the post-filter ladder
     partition: Optional[PartitionId] = None  # local indexes: the query's partition
+    sig: Optional[tuple] = None  # the restrictions' signature (cache key)
+    masked: bool = False  # rides the device-masked regime
+
+
+def _restriction_sig(restrictions: list[Restriction]) -> tuple:
+    """Order-insensitive hashable signature of a restriction set (the reprs
+    of the frozen restriction dataclasses are stable)."""
+    return tuple(sorted(repr(r) for r in restrictions))
 
 
 class VsIndexActor:
@@ -178,6 +215,20 @@ class VsIndexActor:
         self._dropped_adds = 0
         self._escalations = 0  # post-filter oversample requeues
         self._exact_fallbacks = 0  # exact host-scan completions
+        self._masked_dispatches = 0  # requests sent to the device-masked regime
+        # learned filtered-search state, keyed by restriction signature:
+        # the oversample step each filter needed; the exact match set of
+        # filters that reached the terminal or the mask, stamped with
+        # table.mutations (any table write invalidates it); the device
+        # allow-mask handles of mask-promoted filters (a signature present,
+        # even stamp-stale, marks the filter as promoted). Worker threads
+        # share them: the lock guards each update; a value is recomputed
+        # whole, so a race costs work, never a wrong result
+        self._ladder_cache: dict[tuple, int] = {}
+        self._match_cache: dict[tuple, tuple[int, np.ndarray]] = {}
+        self._match_bytes = 0
+        self._allow_cache: dict[tuple, tuple[int, AllowMaskHandle]] = {}
+        self._cache_lock = threading.Lock()
         # dispatched (batch, pending) pairs awaiting one collector pass
         self._inflight_collects: list[tuple[list[_SearchRequest], object]] = []
         self._collector: asyncio.Task | None = None
@@ -250,9 +301,12 @@ class VsIndexActor:
                 f"expected {self.dimensions}"
             )
         fut = asyncio.get_running_loop().create_future()
-        await self._search_queue.put(
-            _SearchRequest(v, limit, restrictions or None, fut, partition=partition)
-        )
+        req = _SearchRequest(v, limit, restrictions or None, fut, partition=partition)
+        if req.restrictions:
+            # a filter seen before starts at the step it needed last time
+            req.sig = _restriction_sig(req.restrictions)
+            req.oversample = self._ladder_cache.get(req.sig, 1)
+        await self._search_queue.put(req)
         return await fut
 
     async def _run(self) -> None:
@@ -443,23 +497,133 @@ class VsIndexActor:
     # executed in a worker thread
     @hotpath.measure
     def _begin_window(self, batches: list[list[_SearchRequest]]):
-        """Launch one device search per batch (no waiting)."""
+        """Triage the filtered requests, then launch one device search per
+        batch and per masked filter group (no waiting). With S rows
+        matching a filter of a global index of N rows:
+
+        - S * 64 < N: the grouped subset-exact terminal, no device work
+          (the ladder's top step could not find limit matches);
+        - S >= N / 32 and the filter proved costly on the ladder (learned
+          step >= 16) or was promoted before: the device-masked scan at
+          k = limit * 2, one search per filter with its allow-mask handle;
+        - otherwise the post-filter ladder.
+
+        A filter's match set is computed only once it reaches the terminal
+        or the mask, once per table mutation stamp."""
+        direct: list[_SearchRequest] = []
+        masked_groups: dict[tuple, list[_SearchRequest]] = {}
+        can_mask = hasattr(self.engine, "upload_allow_mask")
+        if not self.is_local and (self._match_cache or can_mask):
+            stamp = self.table.mutations
+            n_total = max(self.engine.size, 1)
+            kept: list[list[_SearchRequest]] = []
+            for batch in batches:
+                keep: list[_SearchRequest] = []
+                for req in batch:
+                    if req.sig is None:
+                        keep.append(req)
+                        continue
+                    # promotion needs an allow-cache slot: under traffic of
+                    # ever new filters the rest stay on the ladder, which
+                    # keeps no device state per filter
+                    promoted = req.sig in self._allow_cache
+                    want_mask = can_mask and (
+                        promoted
+                        or (len(self._allow_cache) < ALLOW_CACHE_MAX and req.oversample >= MASKED_MIN_STEP)
+                    )
+                    hit = self._match_cache.get(req.sig)
+                    slots = hit[1] if hit is not None and hit[0] == stamp else None
+                    if slots is None and want_mask:
+                        slots = self._matching_slots_stamped(req, stamp)
+                    if slots is None:
+                        keep.append(req)
+                    elif slots.size * OVERSAMPLE_STEPS[-1] < n_total:
+                        direct.append(req)
+                    elif want_mask and slots.size * MASKED_MIN_DENOM >= n_total:
+                        if not req.masked:
+                            req.masked = True
+                            req.oversample = MASKED_OVERSAMPLE
+                        masked_groups.setdefault(req.sig, []).append(req)
+                    else:
+                        keep.append(req)
+                kept.append(keep)
+            batches = kept
+        if direct:
+            self._finish_terminal(direct)
+        units: list[tuple[list[_SearchRequest], AllowMaskHandle | None]] = [
+            (b, None) for b in batches if b
+        ]
+        if masked_groups:
+            stamp = self.table.mutations
+            for sig, group in masked_groups.items():
+                units.append((group, self._allow_handle(sig, group[0], stamp)))
+                self._masked_dispatches += len(group)
+                self._count("masked_dispatches", len(group))
         out = []
-        for batch in batches:
-            if not batch:
-                continue
+        for batch, handle in units:
             k = max(r.limit * r.oversample for r in batch)
             k = min(k, max(self.engine.size, 1))
             queries = np.stack([r.vector for r in batch])
-            out.append((batch, self.engine.search_begin(queries, k, self._partitions(batch))))
+            if handle is None:
+                pending = self.engine.search_begin(queries, k, self._partitions(batch))
+            else:
+                pending = self.engine.search_begin(queries, k, allow_mask=handle)
+            out.append((batch, pending))
         return out
+
+    # executed in a worker thread
+    def _matching_slots_stamped(self, req: _SearchRequest, stamp: int) -> np.ndarray:
+        """The filter's match set, computed (one O(N) host pass) and cached
+        under ``stamp``; the cache is an LRU bounded by count and bytes."""
+        pid = PartitionId.global_for(self.table.index_id(self.metadata.key))
+        slots = self.table.matching_slots(pid, req.restrictions or [])
+        with self._cache_lock:
+            old = self._match_cache.pop(req.sig, None)
+            if old is not None:
+                self._match_bytes -= old[1].nbytes
+            while self._match_cache and (
+                len(self._match_cache) >= MATCH_CACHE_MAX
+                or self._match_bytes + slots.nbytes > MATCH_CACHE_MAX_BYTES
+            ):
+                _, evicted = self._match_cache.pop(next(iter(self._match_cache)))
+                self._match_bytes -= evicted.nbytes
+            self._match_cache[req.sig] = (stamp, slots)
+            self._match_bytes += slots.nbytes
+        return slots
+
+    def _fresh_match_set(self, sig: tuple, req: _SearchRequest, stamp: int) -> np.ndarray:
+        """The filter's match set at ``stamp``: cached, or computed now (a
+        concurrent window may have evicted or re-stamped the entry)."""
+        hit = self._match_cache.get(sig)
+        return hit[1] if hit is not None and hit[0] == stamp else self._matching_slots_stamped(req, stamp)
+
+    # executed in a worker thread
+    def _allow_handle(self, sig: tuple, req: _SearchRequest, stamp: int) -> AllowMaskHandle:
+        """The stamp-fresh allow-mask handle of a mask-promoted filter. The
+        handle keeps its device state across searches; a table mutation
+        makes a new one from the refreshed match set, so rows written since
+        are reachable."""
+        hit = self._allow_cache.get(sig)
+        if hit is not None and hit[0] == stamp:
+            return hit[1]
+        slots = self._fresh_match_set(sig, req, stamp)
+        mask = np.zeros((int(slots.max()) + 1 if slots.size else 1,), dtype=bool)
+        mask[slots] = True
+        handle = self.engine.upload_allow_mask(mask)
+        with self._cache_lock:
+            self._allow_cache.pop(sig, None)  # LRU: a re-stamp moves it to the end
+            if len(self._allow_cache) >= ALLOW_CACHE_MAX:
+                self._allow_cache.pop(next(iter(self._allow_cache)))
+            self._allow_cache[sig] = (stamp, handle)
+        return handle
 
     # executed in a worker thread
     @hotpath.measure
     def _collect_batches(self, items) -> None:
         """Pull and resolve every in-flight batch. Filtered requests whose
         post-filtered results come up short are requeued with a larger
-        oversample; past the top step they finish on the exact host scan."""
+        oversample; past the top step they finish on the terminal. An
+        unmasked filter's step is remembered when it finishes."""
         all_results = self.engine.collect_many([p for _, p in items])
         finished: list[tuple[_SearchRequest, list]] = []
         requeue: list[_SearchRequest] = []
@@ -472,15 +636,21 @@ class VsIndexActor:
                 resolved = self._resolve(req, res)
                 if len(resolved) >= req.limit or self._exhausted(req, res, k_used):
                     finished.append((req, resolved[: req.limit]))
+                    if req.sig is not None and not req.masked:
+                        # a masked request ran pre-filtered: its small
+                        # oversample says nothing about the ladder
+                        self._remember_ladder(req.sig, req.oversample)
                 elif req.oversample >= OVERSAMPLE_STEPS[-1]:
+                    if req.sig is not None and not req.masked:
+                        self._remember_ladder(req.sig, OVERSAMPLE_STEPS[-1])
                     terminal.append(req)
                 else:
                     req.oversample = next(s for s in OVERSAMPLE_STEPS if s > req.oversample)
                     self._escalations += 1
                     self._count("oversample_escalations")
                     requeue.append(req)
-        for req in terminal:
-            self._finish_last(req)
+        if terminal:
+            self._finish_terminal(terminal)
         if loop is not None and (finished or requeue):
             # one loop wakeup for the whole collect
             loop.call_soon_threadsafe(self._finish_many, finished, requeue)
@@ -500,6 +670,12 @@ class VsIndexActor:
         if self.internals is not None:
             self.internals.increment(f"vs_index_{name}", amount)
 
+    def _remember_ladder(self, sig: tuple, step: int) -> None:
+        with self._cache_lock:
+            if len(self._ladder_cache) >= LADDER_CACHE_MAX and sig not in self._ladder_cache:
+                self._ladder_cache.pop(next(iter(self._ladder_cache)))  # one cold entry
+            self._ladder_cache[sig] = step
+
     def _partitions(self, batch: list[_SearchRequest]) -> np.ndarray | None:
         """Per-query partition slots of a local index's batch (-1 none)."""
         if not self.is_local:
@@ -517,6 +693,79 @@ class VsIndexActor:
         if req.partition is not None:
             return k_used >= max(self.engine.partition_count(req.partition.slot), 1)
         return False
+
+    # executed in a worker thread
+    def _finish_terminal(self, reqs: list[_SearchRequest]) -> None:
+        """Terminal of ladder-exhausted and sparse filtered requests,
+        grouped by signature: one (cached) match set a filter and one exact
+        host pass over just those rows for the whole group, O(S * d) once
+        instead of O(N * d) a query. Requests of local indexes, without a
+        signature, or on an engine without the subset scan finish on
+        ``_finish_last``."""
+        groups: dict[tuple, list[_SearchRequest]] = {}
+        fallback: list[_SearchRequest] = []
+        subset = not self.is_local and hasattr(self.engine, "search_exact_host_subset")
+        for req in reqs:
+            if subset and req.sig is not None:
+                groups.setdefault(req.sig, []).append(req)
+            else:
+                fallback.append(req)
+        if groups:
+            pid = PartitionId.global_for(self.table.index_id(self.metadata.key))
+            stamp = self.table.mutations
+            for sig, group in groups.items():
+                slots = self._fresh_match_set(sig, group[0], stamp)
+                self._exact_fallbacks += len(group)
+                self._count("exact_host_fallbacks", len(group))
+                if slots.size == 0:
+                    for req in group:
+                        self._finish(req, [])
+                    continue
+                dists, epochs = self.engine.search_exact_host_subset(
+                    np.stack([r.vector for r in group]), slots
+                )
+                for req, drow in zip(group, dists):
+                    self._finish_subset(req, slots, drow, epochs, pid)
+        for req in fallback:
+            self._finish_last(req)
+
+    def _finish_subset(
+        self,
+        req: _SearchRequest,
+        slots: np.ndarray,
+        drow: np.ndarray,
+        epochs: np.ndarray,
+        pid: PartitionId,
+    ) -> None:
+        """Resolve one request from its distances to the match set. Rows
+        are validated again (epoch and restrictions), so a write since the
+        match set's stamp costs a wider pass, never a wrong result."""
+        kk = min(max(req.limit * 2, req.limit + 8), slots.size)
+        while True:
+            if kk >= slots.size:
+                order = np.argsort(drow, kind="stable")
+            else:
+                part = np.argpartition(drow, kk - 1)[:kk]
+                order = part[np.argsort(drow[part], kind="stable")]
+            out: list[tuple[PrimaryKey, Distance]] = []
+            for j in order:
+                if not np.isfinite(drow[j]):
+                    break
+                primary_id = PrimaryId.new(int(slots[j]), int(epochs[j]))
+                if req.restrictions and not all(
+                    self.table.is_valid_for(pid, primary_id, r) for r in req.restrictions
+                ):
+                    continue
+                pk = self.table.primary_key(pid, primary_id)
+                if pk is None:
+                    continue
+                out.append((pk, self._distance(float(drow[j]))))
+                if len(out) >= req.limit:
+                    break
+            if len(out) >= req.limit or kk >= slots.size:
+                break
+            kk = min(slots.size, kk * 4)
+        self._finish(req, out[: req.limit])
 
     # executed in a worker thread
     def _finish_last(self, req: _SearchRequest) -> None:
