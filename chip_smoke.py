@@ -82,8 +82,24 @@ failure:
    0.90); 10% must be device-masked with both scans launched (>= 0.90);
    1% and 0.1% must take the grouped subset-exact terminal, the warm pass
    with no scan at all (>= 0.99). Then a CDC insert into the 10% bucket and
-   one into the 0.1% bucket, each found first at distance 0. The smoke's
-   total wall time is printed last of all phases.
+   one into the 0.1% bucket, each found first at distance 0.
+9. B1 service: phase 7's rows (the dbpedia-i8 shape) as a global B1 index
+   (COSINE, rescoring on, oversample 4), served by the flat engine's
+   Hamming scan and bf16 rescore tier. 128 requests at 64 in flight:
+   recall@10 against exact f32 (printed); for 32 of them the scan's
+   Hamming top-40 against an oracle built on the card from the rows' signs
+   (the distances equal as multisets) and their recall no lower than the
+   oracle's (the same candidates re-ranked in exact f32) minus 0.01;
+   self-queries and one CDC insert found first at distance 0 (a rounded
+   Hamming distance); one search batch timed at B 64 and B 1024.
+10. local I8 service: partition-1000k stored as I8 (the directory's exact
+   gather and the bf16 tier): every key in its partition, recall@10
+   against the partition's exact top-10 (>= 0.90), self-queries and a CDC
+   insert found first within 1e-6 of distance 0, no partition scan launch
+   (its kernel takes float rows only, as the JAX package's), and the
+   gather against the masked scan at B 64 and B 2048 beside the engine's
+   crossover constant, and the f64 block distance against an f32 sum.
+   The smoke's total wall time is printed last of all phases.
 
 Phase 3 also holds both scans under a slot filter against their plain
 versions (``b`` biased as the engines bias it; 10% and 0.1% of the rows
@@ -127,6 +143,10 @@ G_SWEEP = (1, 2, 4, 8)
 MASK_FRACS = (0.1, 0.001)  # allowed shares of phase 3's masked scans
 SELECTIVITY = (0.5, 0.1, 0.01, 0.001)  # vector_store_tpu/benchkit/harness.py:25
 FILTERED_REQUESTS = FILTERED_IN_FLIGHT = 128  # filtered-1000k (benchkit/scale.py:416-449)
+B1_ROWS = I8_ROWS  # the dbpedia-i8 shape, stored as B1
+B1_REQUESTS = 128
+B1_OVERSAMPLE = 4  # the flat engine's default
+B1_ORACLE = 32  # queries held to the Hamming oracle
 # each kernel's time under the port's first scan core, before its redesign
 # for Hopper: ms at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W,
 # copied from PERF.md section 5 (that core's last full smoke run), not
@@ -1279,6 +1299,279 @@ async def filtered_phase(device, card: str) -> dict:
         await service.stop()
 
 
+def hamming_oracle(bits_dev: torch.Tensor, q_bits: torch.Tensor, kc: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact Hamming top-kc of {0, 1} queries [B, D] over {0, 1} rows [N, D]
+    (both f32 on the card; the products are exact integers, TF32 is off),
+    from the rows' own signs: popcnt(q) + popcnt(v) - 2 q.v, in chunks of
+    rows. Returns (distances [B, kc] ascending, rows [B, kc])."""
+    qc = q_bits.sum(1)
+    cand_d, cand_i = [], []
+    for lo in range(0, bits_dev.shape[0], 131_072):
+        block = bits_dev[lo : lo + 131_072].float()
+        d = qc[:, None] + block.sum(1)[None, :] - 2.0 * (q_bits @ block.T)
+        bd, bi = torch.topk(d, kc, dim=1, largest=False)
+        cand_d.append(bd)
+        cand_i.append(bi + lo)
+    best_d, sel = torch.topk(torch.cat(cand_d, 1), kc, dim=1, largest=False)
+    return best_d, torch.gather(torch.cat(cand_i, 1), 1, sel)
+
+
+async def b1_phase(device, card: str) -> None:
+    """Phase 9: one global B1 index at the dbpedia-i8 shape served over
+    HTTP (the flat engine's Hamming scan and bf16 rescore tier)."""
+    import aiohttp
+
+    from vector_store_tpu_torch.core.types import Quantization
+    from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
+    from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
+    from vector_store_tpu_torch.run import serve
+    from vector_store_tpu_torch.service.config import Config
+
+    rng = np.random.default_rng(SEED + 9)
+    n, dims = B1_ROWS, I8_DIMS
+    t_gen = time.perf_counter()
+    data = clustered_rows(rng, n, dims, I8_CENTERS)
+    pick = rng.integers(0, n, size=B1_REQUESTS)
+    queries = data[pick] + rng.standard_normal((B1_REQUESTS, dims), dtype=np.float32) * np.float32(
+        0.1 / np.sqrt(dims)
+    )
+    data_dev = torch.from_numpy(data).to(device)
+    q_dev = torch.from_numpy(queries).to(device)
+    gt = exact_top_k(data_dev, q_dev, K)
+    # the oracle of the first B1_ORACLE queries: Hamming top-(oversample k)
+    # from the rows' signs, re-ranked by exact f32 cosine
+    bits = data_dev > 0
+    del data_dev
+    torch.cuda.empty_cache()
+    q_or = q_dev[:B1_ORACLE]
+    oracle_d, oracle_rows = hamming_oracle(bits, (q_or > 0).float(), K * B1_OVERSAMPLE)
+    del bits
+    torch.cuda.empty_cache()
+    cand = torch.stack([torch.from_numpy(data[r]).to(device) for r in oracle_rows.cpu().numpy()])  # [B, kc, D]
+    cos = torch.einsum("bd,bmd->bm", q_or, cand) / (q_or.norm(dim=1)[:, None] * cand.norm(dim=2))
+    oracle_top = torch.gather(oracle_rows, 1, torch.topk(1.0 - cos, K, dim=1, largest=False).indices).cpu().numpy()
+    del cand, cos
+    print(f"[b1] {n} x {dims} rows around {I8_CENTERS} centers, exact ground truth and the Hamming oracle of "
+          f"{B1_ORACLE} queries in {time.perf_counter() - t_gen:.1f} s", flush=True)
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl5", ("pk",)))
+    metadata = make_vs_metadata(index="b1idx", table="tbl5", dimensions=dims,
+                                quantization=Quantization.B1)  # COSINE, rescoring on, global
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row((i,), data[i], 100) for i in range(n))))
+    port = free_port()
+
+    t0 = time.perf_counter()
+    service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
+    try:
+        async with aiohttp.ClientSession() as http:
+            client = Http(http, f"http://127.0.0.1:{port}/api/v1/indexes/ks/b1idx")
+            await client.wait_for(lambda: client.counted(n), f"{n} rows")
+            ingest_s = time.perf_counter() - t0
+            engine = service.indexes.get_vs(metadata.key).actor.engine
+            check(isinstance(engine, FlatDeviceIndex) and engine.vectors.dtype is torch.uint8,
+                  "the B1 index is not on the flat engine's packed rows")
+            check(engine.rescore and engine.oversample == B1_OVERSAMPLE, "the B1 index has no rescore tier")
+            print(f"[b1] {n} rows ingested in {ingest_s:.1f} s; flat engine, {engine.dp}-byte packed rows, "
+                  f"capacity {engine.capacity}, bf16 rescore tier, oversample {engine.oversample}, "
+                  f"device bytes {engine.device_bytes:,}", flush=True)
+
+            # -- the B1 path --------------------------------------------------
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat: list[float] = []
+
+            async def one(q):
+                async with sem:
+                    t = time.perf_counter()
+                    res = await client.ann(q)
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]["pk"]
+
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*(one(q) for q in queries))
+            wall = time.perf_counter() - t1
+            recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt)]))
+            print(f"[b1] recall@{K} {recall:.4f} over {B1_REQUESTS} requests against exact f32 cosine", flush=True)
+
+            # the scan's candidates against the oracle's, as multisets of
+            # Hamming distances (rows may differ only among ties)
+            qs = engine.query_tensor(queries[:B1_ORACLE])
+            dist, rows = engine._flat_search(qs, K * engine.oversample)
+            check(torch.equal(dist, oracle_d), "the B1 scan's Hamming candidates differ from the oracle's")
+            held = float((dist[:, -1:] > dist).float().mean())  # share of candidates strictly inside the cut
+            port_recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got[:B1_ORACLE], gt)]))
+            oracle_recall = float(np.mean([len(set(o.tolist()) & set(t.tolist())) / K
+                                           for o, t in zip(oracle_top, gt)]))
+            print(f"[b1] {B1_ORACLE} queries: Hamming top-{K * engine.oversample} distances equal to the oracle's "
+                  f"({held:.3f} of them strictly inside the cut-off); recall@{K} {port_recall:.4f} against the "
+                  f"oracle's (the same candidates re-ranked in exact f32) {oracle_recall:.4f}", flush=True)
+            check(port_recall >= oracle_recall - 0.01,
+                  f"B1 recall {port_recall:.4f} under the oracle's {oracle_recall:.4f} - 0.01")
+
+            for i in rng.choice(n, size=16, replace=False):
+                res = await client.ann(data[i], 3)
+                check(res["primary_keys"]["pk"][0] == int(i) and res["distances"][0] == 0.0,
+                      f"B1 self-query of row {i} returned {res}")
+            new = clustered_rows(rng, 1, dims, I8_CENTERS)[0]
+            await db.db_indexes[metadata.key].push_cdc(vector_row((n,), new, 200))
+            await client.wait_for(lambda: client.counted(n + 1), "the CDC row", timeout=60)
+            res = await client.ann(new, 3)
+            check(res["primary_keys"]["pk"][0] == n and res["distances"][0] == 0.0, f"B1 CDC row query returned {res}")
+
+            times = {}
+            for b in (64, 1024):
+                qb = np.resize(queries, (b, dims))
+                times[b] = median_ms(lambda: engine.search(qb, K), reps=5, warmup=1)
+            print(f"[b1] one flat B1 search batch (Hamming scan of {engine.capacity:,} rows, bf16 tier, host "
+                  f"collect; CUDA events around the call) on {card}: B 64 {times[64]:.2f} ms, B 1024 "
+                  f"{times[1024]:.2f} ms", flush=True)
+            print(
+                f"[b1] smoke readings on {card}: ingest {ingest_s:.1f} s for {n} x {dims} rows, "
+                f"{B1_REQUESTS / wall:.0f} QPS and p50 {1e3 * statistics.median(lat):.1f} ms at {IN_FLIGHT} in "
+                f"flight (client in the same process)",
+                flush=True,
+            )
+    finally:
+        await service.stop()
+
+
+async def local_i8_phase(device, card: str) -> None:
+    """Phase 10: partition-1000k stored as I8, served over HTTP (the
+    directory's exact gather and the bf16 rescore tier; no partition
+    scan: the JAX package's partition kernel takes float rows only)."""
+    import aiohttp
+
+    from vector_store_tpu_torch.core.types import DbIndexPartitioning, Quantization
+    from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
+    from vector_store_tpu_torch.engine.flat import PART_CROSSOVER_LOSSY, normalize_rows
+    from vector_store_tpu_torch.ops import partition_scan as ps
+    from vector_store_tpu_torch.ops.distance import query_block_distance
+    from vector_store_tpu_torch.run import serve
+    from vector_store_tpu_torch.service.config import Config
+
+    rng = np.random.default_rng(SEED + 10)
+    n = SERVICE_ROWS
+    data = clustered_rows(rng, n)
+    pick = rng.integers(0, n, size=N_REQUESTS)
+    qpart = pick % LOCAL_PARTS
+    queries = data[pick] + rng.standard_normal((N_REQUESTS, DIMS), dtype=np.float32) * np.float32(
+        0.1 / np.sqrt(DIMS)
+    )
+    gt = partition_top_k(torch.from_numpy(data).to(device), torch.from_numpy(queries).to(device), qpart, K)
+
+    def key(i: int) -> tuple[int, int]:
+        return int(i % LOCAL_PARTS), int(i // LOCAL_PARTS)
+
+    def in_partition(p: int) -> dict:
+        return {"filter": {"restrictions": [{"type": "==", "lhs": "p", "rhs": int(p)}], "allow_filtering": True}}
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl6", ("p", "c")))
+    metadata = make_vs_metadata(
+        index="li8idx", table="tbl6", dimensions=DIMS, primary_key_columns=("p", "c"), partition_key_count=1,
+        partitioning=DbIndexPartitioning.local(("p",)), quantization=Quantization.I8,
+    )  # COSINE, rescoring on
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row(key(i), data[i], 100) for i in range(n))))
+    port = free_port()
+
+    t0 = time.perf_counter()
+    service = await serve(db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), device=device)
+    try:
+        async with aiohttp.ClientSession() as http:
+            client = Http(http, f"http://127.0.0.1:{port}/api/v1/indexes/ks/li8idx")
+            await client.wait_for(lambda: client.counted(n), f"{n} rows")
+            ingest_s = time.perf_counter() - t0
+            engine = service.indexes.get_vs(metadata.key).actor.engine
+            pmax = engine._part_rows_host.shape[1]
+            print(f"[local-i8] {n} rows in {LOCAL_PARTS} partitions ingested in {ingest_s:.1f} s; directory "
+                  f"P_cap x pmax = {engine._part_rows_host.shape}, capacity {engine.capacity}, mirror "
+                  f"{engine.part_vecs is not None}, device bytes {engine.device_bytes:,}", flush=True)
+            check(engine.vectors.dtype is torch.int8 and engine.part_vecs is None and engine.rescore,
+                  "the local I8 index is not int8 rows with a rescore tier and no mirror")
+            check(engine._part_directory_wins(), "the local I8 index does not route to its directory")
+
+            async def first_is(vector, p: int, want: tuple[int, int]) -> bool:
+                res = await client.ann(vector, 3, **in_partition(p))
+                keys = res["primary_keys"]
+                return (keys["p"][:1], keys["c"][:1]) == ([want[0]], [want[1]]) and abs(res["distances"][0]) <= 1e-6
+
+            # -- the local I8 path ------------------------------------------
+            ps.partition_scan.launches = 0
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat: list[float] = []
+
+            async def one(q, p):
+                async with sem:
+                    t = time.perf_counter()
+                    res = await client.ann(q, K, **in_partition(p))
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]
+
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*(one(q, p) for q, p in zip(queries, qpart)))
+            wall = time.perf_counter() - t1
+            for keys, p in zip(got, qpart):
+                check(set(keys["p"]) == {int(p)}, f"a result left partition {p}: {keys}")
+            recall = float(np.mean([
+                len(set(keys["c"]) & set((t // LOCAL_PARTS).tolist())) / K for keys, t in zip(got, gt)
+            ]))
+            print(f"[local-i8] recall@{K} {recall:.4f} over {N_REQUESTS} partition-restricted requests; every "
+                  f"key in its partition", flush=True)
+            check(recall >= RECALL_MIN, f"local I8 recall@{K} {recall:.4f} < {RECALL_MIN}")
+
+            for i in rng.choice(n, size=8, replace=False):
+                check(await first_is(data[i], key(i)[0], key(i)), f"I8 self-query of row {key(i)} failed")
+            p = key(pick[0])[0]
+            new = clustered_rows(rng, 1)[0]
+            await db.db_indexes[metadata.key].push_cdc(vector_row((p, n), new, 200))
+            await client.wait_for(lambda: client.counted(n + 1), "the CDC insert", timeout=60)
+            check(await first_is(new, p, (p, n)), "the local I8 CDC insert was not found first")
+            launches = ps.partition_scan.launches
+            print(f"[local-i8] partition_scan launches during the local I8 path: {launches}", flush=True)
+            check(launches == 0, "the partition scan launched for I8 rows")
+
+            # the directory's gather against the masked scan, both fetching
+            # the tier's oversample x k candidates, and the f64 sum of the
+            # gather's I8 block distances against an f32 one
+            kc = K * engine.oversample
+            crossing = {}
+            for nq in (64, 2048):
+                sel = rng.integers(0, n, size=nq)
+                q = engine.query_tensor(normalize_rows(data[sel]))
+                psel = (sel % LOCAL_PARTS).astype(np.int64)
+                bsel = engine._directory_buckets(psel)
+                psel_t = torch.from_numpy(psel.astype(np.int32)).to(device)
+                t_dir = median_ms(lambda: engine._part_gather(q, bsel, kc), reps=5, warmup=1)
+                t_mask = median_ms(lambda: engine._flat_search(q, kc, psel_t), reps=3, warmup=1)
+                crossing[nq] = (t_dir, t_mask)
+                print(f"[local-i8] B={nq}: directory gather {t_dir:.3f} ms (B*pmax = {nq * pmax:,} rows), masked "
+                      f"scan {t_mask:.3f} ms ({engine.capacity:,} rows), I8 k={kc}, on {card}", flush=True)
+            t_dir, t_mask = crossing[2048]
+            ratio = (t_mask / (2048 * engine.capacity)) / (t_dir / (2048 * pmax))
+            print(f"[local-i8] per query-row at B=2048: the directory wins while pmax <= {ratio:.3f} x capacity "
+                  f"(the engine routes lossy storage on PART_CROSSOVER_LOSSY = {PART_CROSSOVER_LOSSY})", flush=True)
+            step = max(1, ps.PLAIN_CHUNK_ELEMS // (pmax * engine.dp))  # the gather's chunk of queries
+            rows = engine.part_rows[bsel[:step].long()]
+            vb = engine.vectors[torch.clamp(rows, min=0).long()]  # [step, pmax, Dp] int8
+            qa = torch.zeros(step, device=device)
+            va = torch.ones(vb.shape[:2], device=device)
+            t64 = median_ms(lambda: query_block_distance(q[:step], vb, engine.space_type, engine.quantization,
+                                                         qa, va), reps=5, warmup=1)
+            t32 = median_ms(lambda: torch.einsum("bd,bmd->bm", q[:step].float(), vb.float()), reps=5, warmup=1)
+            print(f"[local-i8] one gather chunk [{step}, {pmax}, {engine.dp}] int8: I8 block distance (f64 sum) "
+                  f"{t64:.3f} ms, the same product summed in f32 {t32:.3f} ms; {-(-2048 // step)} chunks at "
+                  f"B 2048, on {card}", flush=True)
+            del vb
+            print(
+                f"[local-i8] smoke readings on {card}: ingest {ingest_s:.1f} s for {n} rows, "
+                f"{N_REQUESTS / wall:.0f} QPS and p50 {1e3 * statistics.median(lat):.1f} ms "
+                f"at {IN_FLIGHT} in flight (client in the same process)",
+                flush=True,
+            )
+    finally:
+        await service.stop()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
@@ -1324,6 +1617,14 @@ def main() -> None:
     host_line("the filtered service")
     masked = asyncio.run(filtered_phase(device, card))
     print(f"[filtered] launches during the 10% bucket's warm pass (the device-masked path): {masked}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the B1 service")
+    asyncio.run(b1_phase(device, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the local I8 service")
+    asyncio.run(local_i8_phase(device, card))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:
         entry["launches"] = launches[entry["name"]]

@@ -9,7 +9,9 @@ result. The grouped scan runs at g = 1, 2, 4 and 8 clusters
 per block and over int8 rows (the I8 index); both scans also run at the
 tails their tensor-core and register-tiled cores must get right (a row
 length that is 8 mod 16, query tiles cut short, cmax 384 and 640, a group
-with no live row) and at Dp 3072. On a GPU machine run them with
+with no live row) and at Dp 3072. The B1 Hamming distances and the
+stable top-k, torch calls that take other code on the card (`_int_mm`),
+are held to their CPU results. On a GPU machine run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -225,6 +227,42 @@ def test_i8_distances_on_the_card_are_exact(cuda, nq):
             qs.to(cuda), vs.to(cuda), space, Quantization.I8, q_aux.to(cuda), v_aux.to(cuda)
         )
         assert torch.allclose(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("nq", [3, 40])
+def test_hamming_distances_on_the_card_are_exact(cuda, nq):
+    """The B1 Hamming distances (unpacked bits through torch._int_mm in
+    the pairwise form, an f32 sum of bits in the block form) equal the
+    CPU's at 1536-d, and the popcount aux too."""
+    from vector_store_tpu_torch.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.ops import distance
+
+    rng = np.random.default_rng(nq)
+    q = rng.normal(size=(nq, 1536)).astype(np.float32)
+    v = rng.normal(size=(37, 1536)).astype(np.float32)
+    qs, q_aux = distance.prepare_queries(q, SpaceType.COSINE, Quantization.B1)
+    vs, v_aux = distance.prepare_queries(v, SpaceType.COSINE, Quantization.B1)
+    assert torch.equal(distance.vector_aux(vs.to(cuda), SpaceType.COSINE, Quantization.B1).cpu(), v_aux)
+    want = distance.pairwise_distance(qs, vs, SpaceType.COSINE, Quantization.B1, q_aux, v_aux)
+    got = distance.pairwise_distance(qs.to(cuda), vs.to(cuda), SpaceType.COSINE, Quantization.B1,
+                                     q_aux.to(cuda), v_aux.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    idx = torch.from_numpy(rng.integers(0, 37, size=(nq, 5)))
+    want_b = distance.query_block_distance(qs, vs[idx], SpaceType.COSINE, Quantization.B1, q_aux, v_aux[idx])
+    got_b = distance.query_block_distance(qs.to(cuda), vs[idx].to(cuda), SpaceType.COSINE, Quantization.B1,
+                                          q_aux.to(cuda), v_aux[idx].to(cuda))
+    assert torch.equal(got_b.cpu(), want_b)
+
+
+def test_stable_min_k_on_the_card(cuda):
+    """Ties go to the lower position on the card as on the CPU."""
+    from vector_store_tpu_torch.ops.topk import stable_min_k
+
+    d = torch.from_numpy(np.random.default_rng(3).integers(0, 6, size=(9, 5000)).astype(np.float32))
+    d[0, ::3] = float("inf")
+    want = stable_min_k(d, 70)
+    got = stable_min_k(d.to(cuda), 70)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -51,12 +51,6 @@ def test_quantize_matches_jax(quant):
         assert dp >= d and dp % 8 == 0 and dp - d < 8
 
 
-@pytest.mark.parametrize("quant", (Quantization.B1,))
-def test_unported_quantizations_raise(quant):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize.storage_dtype(quant)
-
-
 @pytest.mark.parametrize("quant", QUANTS)
 @pytest.mark.parametrize("space", SPACES)
 def test_distances_match_jax(quant, space):

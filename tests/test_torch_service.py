@@ -4,8 +4,9 @@ Both services are seeded with the same FakeDb contents (100 rows in 3-d,
 one default index: COSINE, F32, global) and served on local ports; the
 same ANN requests must return the same primary keys with distances within
 1e-6. A self-query returns distance 0.0, a CDC upsert becomes searchable,
-and an index kind the port does not serve yet (B1, a local I8 index) answers with its
-NotImplementedError instead of another engine.
+and an engine kind the port does not serve yet (the graph engine, a sharded
+engine, for a global index) answers with its NotImplementedError instead of
+another engine.
 
 A local (per-partition) index is served like the JAX service serves it:
 4 partitions x 5 rows with a (pk, ck) primary key, the layout of
@@ -55,10 +56,10 @@ def seeded_db(vecs, side=PORT, **md_kwargs):
     return db
 
 
-async def start(serve_fn, db, side=PORT, **kw):
+async def start(serve_fn, db, side=PORT, engine_kind="auto", **kw):
     port = free_port()
     service = await serve_fn(
-        db, side[2](uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.05), **kw
+        db, side[2](uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.05, engine_kind=engine_kind), **kw
     )
     return service, f"http://127.0.0.1:{port}/api/v1/indexes/ks/idx"
 
@@ -157,23 +158,18 @@ async def test_global_i8_index_serves_like_jax_service():
         await jax_svc.stop()
 
 
-@pytest.mark.parametrize(
-    "md_kwargs",
-    [
-        {"quantization": port_types.Quantization.B1},
-        # global I8 is served (test_global_i8_index_serves_like_jax_service); a local I8 index is not
-        {
-            "quantization": port_types.Quantization.I8,
-            "partitioning": port_types.DbIndexPartitioning.local(("pk",)),
-        },
-    ],
-    ids=["b1", "i8"],
-)
-async def test_unported_index_kinds_answer_not_implemented(md_kwargs):
+# every storage kind is served (B1 and local indexes by the flat engine:
+# tests/test_torch_openapi_quantization.py); the graph and sharded engines
+# are not ported, and a global index under them is refused
+@pytest.mark.parametrize("engine_kind", ["graph", "ivf-sharded"])
+async def test_unported_index_kinds_answer_not_implemented(engine_kind):
     from vector_store_tpu_torch.run import serve
 
     vecs = np.random.default_rng(6).normal(size=(10, DIMS)).astype(np.float32)
-    svc, base = await start(serve, seeded_db(vecs, **md_kwargs), device=torch.device("cpu"))
+    svc, base = await start(
+        serve, seeded_db(vecs, quantization=port_types.Quantization.B1), engine_kind=engine_kind,
+        device=torch.device("cpu"),
+    )
     try:
         async with aiohttp.ClientSession() as http:
             deadline = asyncio.get_running_loop().time() + 10

@@ -1,9 +1,10 @@
 """vector-store-tpu on PyTorch and CUDA: the port of ``vector_store_tpu``.
 
-The ANN paths (an unfiltered query on a global F32/F16/BF16/I8 index,
-served by the IVF engine, and a partition-restricted query on a local
-F32/F16/BF16 index, served by the flat engine's partition directory) run
-here on an NVIDIA H100: device state lives in torch tensors, the plain
+The ANN paths (an unfiltered or filtered query on a global F32/F16/BF16/I8
+index, served by the IVF engine; a query on a B1 or Hamming index, served
+by the flat engine's Hamming scan and bf16 rescore tier; and a
+partition-restricted query on a local index of any storage, served by the
+flat engine's partition directory) run here on an NVIDIA H100: device state lives in torch tensors, the plain
 tensor work is PyTorch, and the scan kernels are hand-written CUDA for
 sm_90a (csrc/). The JAX package stays the reference. This package imports
 nothing of it: the device-free modules (core, table, db, fts, native, the

@@ -1,39 +1,49 @@
 """Exact (brute-force) device-resident vector index.
 
-Counterpart of vector_store_tpu/engine/flat.py for F32/F16/BF16 and I8
-indexes. It serves small global indexes, every local (per-partition)
-F32/F16/BF16 index, and is the IVF engine's delta region. Device state,
-slot-indexed like the reference's PrimaryId slots:
+Counterpart of vector_store_tpu/engine/flat.py for every storage kind
+(F32/F16/BF16, I8 and B1). It serves small global indexes, every local
+(per-partition) index and every B1 or Hamming index, and is the IVF
+engine's delta region. Device state, slot-indexed like the reference's
+PrimaryId slots:
 
-- vectors [cap, Dp]  storage dtype
+- vectors [cap, Dp]  storage dtype (packed bytes for B1)
 - a, b    [cap] f32  rank coefficients of the fused scan (b = INVALID_BIAS
                      for never-written or removed slots)
-- aux     [cap] f32  |v| for cosine (zeros otherwise), for the exact scans
+- aux     [cap] f32  |v| for cosine, popcount for B1 (zeros otherwise),
+                     for the exact scans
 - parts   [cap] i32  partition slot of each row (-1 = none)
 
-I8 storage has no fused scan (the JAX package ran it as XLA, not Pallas):
-its search is an exact block-wise scan of integer products
-(``_flat_search``) that fetches ``oversample`` x k candidates, re-ranked
-by the bf16 rescore tier (``rescore_vectors`` [cap, Dp'] bf16 and
-``rescore_aux``, ``_rescore_stage``): the reference's oversampling and
-rescoring index options.
+Float storage ranks with the fused scan (kernel 1, ops/fused_scan.py) and
+ships only [B, k] int32 winner slots back: the host recomputes exact f32
+distances from its f32 mirror of every stored vector and attaches epochs
+(ids_postprocess; the reference resolves ids host-side the same way,
+usearch.rs:1067-1154).
 
-Validity, epochs and an f32 copy of every stored vector live in host
-mirrors: a search ships only [B, k] int32 winner slots back, and the host
-recomputes exact f32 distances and attaches epochs (ids_postprocess; the
-reference resolves ids host-side the same way, usearch.rs:1067-1154).
+Lossy storage (I8, B1) has no fused scan (the JAX package ran it as XLA,
+not Pallas): its search is an exact block-wise scan (``_flat_search``:
+integer products for I8, Hamming distances for B1) that fetches
+``oversample`` x k candidates, re-ranked by the bf16 rescore tier
+(``rescore_vectors`` [cap, Dp'] bf16 and ``rescore_aux``,
+``_rescore_stage``): the reference's oversampling and rescoring index
+options. Its results carry the device's distances (the tier's bf16
+distance in the declared space, or the scan's own with rescoring off), as
+the JAX package returns them, so it keeps no host mirror of the vectors.
+A B1 index keeps its rows' scale (no cosine normalization), as in the JAX
+package.
+
 Mutations update the device tensors in place (the JAX package donated
-buffers to the same effect). Capacity grows by the reserve increment
-(1M for global indexes, 1k for local ones, usearch.rs:442-443).
+buffers to the same effect). Capacity grows by the reserve increment (1M
+for global indexes, 1k for local ones, usearch.rs:442-443).
 
 Local indexes keep a partition directory: per-partition slot lists
 (``part_rows`` [P_cap, pmax], bucket order and swap-removes as in the JAX
-package) and a partition-major mirror of the rows (``part_vecs``
-[P_cap * pmax, Dp] with its own a, b) that the partition scan (kernel 3,
-ops/partition_scan.py) reads one bucket per query. A query naming a
-partition costs O(pmax) rows instead of a masked scan of the table.
-
-Not ported yet (ROADMAP.md, port queue): local I8 indexes and B1.
+package). For float storage a partition-major mirror of the rows
+(``part_vecs`` [P_cap * pmax, Dp] with its own a, b) feeds the partition
+scan (kernel 3, ops/partition_scan.py), one bucket per query; lossy
+storage gathers each query's bucket from the flat tensors instead
+(``_part_gather``, the JAX package's _part_search) and re-ranks it with
+the tier. A query naming a partition costs O(pmax) rows instead of a
+masked scan of the table.
 """
 
 from __future__ import annotations
@@ -65,8 +75,13 @@ from vector_store_tpu_torch.ops.partition_scan import (
     PLAIN_CHUNK_ELEMS,
     partition_candidates,
 )
-from vector_store_tpu_torch.ops.quantize import padded_dim, quantize_i8, storage_dtype
-from vector_store_tpu_torch.ops.topk import merge_min_k
+from vector_store_tpu_torch.ops.quantize import (
+    LOSSY_QUANTIZATIONS,
+    padded_dim,
+    storage_dtype,
+    to_storage_rows,
+)
+from vector_store_tpu_torch.ops.topk import merge_min_k, stable_min_k
 
 logger = logging.getLogger(__name__)
 
@@ -85,6 +100,13 @@ LOCAL_RESERVE_INCREMENT = 1_000
 # package's TPU rule (B * pmax <= 3 * capacity) read the table once a
 # batch.
 PART_CROSSOVER = 0.27
+# The same rule for lossy storage (I8, B1), whose directory is the exact
+# gather of the bucket (no partition scan kernel) and whose masked scan is
+# an integer product: at B = 2048 a (query, row) of the masked I8 scan
+# costs 0.017 of one of the gather's (1M rows, pmax 1024, k 40;
+# chip_smoke.py phase 10 on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.021
+# and 0.012 in two runs, their mean; 0.05 and 0.03 at B = 64; PERF.md).
+PART_CROSSOVER_LOSSY = 0.017
 
 
 @dataclass
@@ -110,17 +132,18 @@ class PendingSearch:
     the result tensors are pulled to the host at collect time.
 
     ``packed`` is [B, k] int32 winner slots (-1 empty); exact distances
-    and epochs come from the host mirrors. A raw search (the IVF engine's
-    delta region) leaves ``packed`` [B, k] f32 rank values (distances for
-    I8, ``is_dist``) and ``rows`` [B, k] int32 rows instead, for the
-    engine's own merge."""
+    and epochs come from the host mirrors. A raw search of float storage
+    (the IVF engine's delta region) leaves ``packed`` [B, k] f32 rank
+    values and ``rows`` [B, k] int32 rows instead, for the engine's own
+    merge. Lossy storage (I8, B1) always leaves ``packed`` [B, k] f32
+    distances and ``rows`` (``is_dist``)."""
 
     packed: torch.Tensor
     b_real: int
     k: int
     rows: torch.Tensor | None = None
     q_f32: np.ndarray | None = None  # [B, D] normalized f32 queries
-    is_dist: bool = False  # raw ``packed`` holds true distances (I8)
+    is_dist: bool = False  # ``packed`` holds distances of ``rows`` (I8, B1)
     # the IVF engine's slot filter as its scans read it (the main region's
     # masked bias, the delta's position mask), for a retry of the batch
     main_b: torch.Tensor | None = None
@@ -219,18 +242,22 @@ class FlatDeviceIndex:
         self.space_type = space_type
         self.quantization = quantization
         self.device = torch.device(device)
-        self.dtype = storage_dtype(quantization)  # raises for B1
+        self.dtype = storage_dtype(quantization)
         self.dp = padded_dim(dimensions, quantization)
         self.block_rows = block_rows or block_rows_for(self.dp)
         self.reserve_increment = reserve_increment
         # rescoring=False (index option): device rank order is the result
         # order; the exact f32 recompute only supplies the distances
         self.rescoring = rescoring
-        # I8 keeps a bf16 copy of every row: the integer scan fetches
+        # I8 and B1 keep a bf16 copy of every row: their scan fetches
         # oversample x k candidates and the tier re-ranks them (off with
-        # rescoring=False: storage-precision order end to end)
-        self.rescore = quantization is Quantization.I8 and rescoring
+        # rescoring=False: storage-precision order and distances end to end)
+        self.lossy = quantization in LOSSY_QUANTIZATIONS
+        self.rescore = self.lossy and rescoring
         self.oversample = oversample if self.rescore else 1
+        # cosine rows and queries are stored and scanned as unit vectors,
+        # but for B1, whose sign bits and rescore tier take them as given
+        self.normalize = space_type is SpaceType.COSINE and quantization is not Quantization.B1
         self.dp_rescore = padded_dim(dimensions, Quantization.BF16)
         cap = self._round_cap(max(initial_capacity, self.block_rows))
         self.vectors = torch.zeros((cap, self.dp), dtype=self.dtype, device=self.device)
@@ -248,7 +275,8 @@ class FlatDeviceIndex:
         self._live = 0
         self._valid_host = np.zeros((cap,), dtype=bool)
         self._epochs_host = np.full((cap,), -1, dtype=np.int32)
-        self._vecs_host = np.zeros((cap, dimensions), dtype=np.float32)
+        # the f32 mirror feeds the exact distances of float storage only
+        self._vecs_host = None if self.lossy else np.zeros((cap, dimensions), dtype=np.float32)
 
         # partition directory, made at the first partitioned upsert; turned
         # off for good if a partition outgrows _PART_PMAX_CAP (the masked
@@ -260,7 +288,8 @@ class FlatDeviceIndex:
         self._slot_pos = np.full((cap,), -1, dtype=np.int32)
         self._part_overflow = False
         self.part_rows: torch.Tensor | None = None  # device copy of the lists
-        # partition-major mirror read by the partition scan, kept in sync
+        # partition-major mirror read by the partition scan (float storage
+        # only: the JAX package's partition kernel takes F32/F16/BF16), kept in sync
         # from the flat tensors: a full rebuild when P_cap or pmax grows,
         # whole buckets after swap-removes, single positions for appends
         # and in-place vector updates
@@ -284,9 +313,9 @@ class FlatDeviceIndex:
 
     @property
     def device_bytes(self) -> int:
-        """Device footprint: the slot tensors, the I8 rescore tier, and for
-        a local index the directory and its partition-major mirror (a
-        second copy of the rows)."""
+        """Device footprint: the slot tensors, the rescore tier of lossy
+        storage, and for a local index the directory and, for float
+        storage, its partition-major mirror (a second copy of the rows)."""
         total = self.capacity * (self.vectors.element_size() * self.dp + 16)
         if self.rescore:
             total += self.capacity * (2 * self.dp_rescore + 4)
@@ -299,8 +328,10 @@ class FlatDeviceIndex:
 
     @property
     def host_bytes(self) -> int:
-        total = self._valid_host.nbytes + self._epochs_host.nbytes + self._vecs_host.nbytes
+        total = self._valid_host.nbytes + self._epochs_host.nbytes
         total += self._slot_part.nbytes + self._slot_pos.nbytes
+        if self._vecs_host is not None:
+            total += self._vecs_host.nbytes
         if self._part_rows_host is not None:
             total += self._part_rows_host.nbytes
         return total
@@ -330,21 +361,18 @@ class FlatDeviceIndex:
             self.rescore_aux = torch.cat([self.rescore_aux, self.rescore_aux.new_zeros((grow,))])
         self._valid_host = _grown(self._valid_host, new, False)
         self._epochs_host = _grown(self._epochs_host, new, -1)
-        self._vecs_host = _grown(self._vecs_host, new, 0.0)
+        if self._vecs_host is not None:
+            self._vecs_host = _grown(self._vecs_host, new, 0.0)
         self._slot_part = _grown(self._slot_part, new, -1)
         self._slot_pos = _grown(self._slot_pos, new, -1)
 
     # -- mutation --------------------------------------------------------------
 
     def _store(self, slots: torch.Tensor | slice, rows_f32: torch.Tensor) -> None:
-        """Quantize f32 rows [n, D] (normalized for cosine) on their device
-        and write them with their rank coefficients (and, for I8, their
-        bf16 rescore rows)."""
-        padded = torch.nn.functional.pad(rows_f32, (0, self.dp - rows_f32.shape[1]))
-        if self.quantization is Quantization.I8:
-            vals = quantize_i8(padded)
-        else:
-            vals = padded.to(self.dtype)
+        """Quantize f32 rows [n, D] (normalized where ``self.normalize``)
+        on their device and write them with their rank coefficients (and,
+        for lossy storage, their bf16 rescore rows)."""
+        vals = to_storage_rows(rows_f32, self.quantization, self.dp)
         a, b = paux_coeffs(self.space_type, vals)
         self.vectors[slots] = vals
         self.a[slots] = a
@@ -368,7 +396,6 @@ class FlatDeviceIndex:
         slots = np.asarray(slots, dtype=np.int64)
         if slots.size == 0:
             return
-        self._require_unpartitioned_i8(partitions)
         epochs = np.asarray(epochs, dtype=np.int32)
         vectors = np.asarray(vectors, dtype=np.float32)
         parts = (
@@ -383,7 +410,7 @@ class FlatDeviceIndex:
             slots, epochs, vectors, parts = slots[keep], epochs[keep], vectors[keep], parts[keep]
         self.reserve(int(slots.max()))
         was_valid = self._valid_host[slots]
-        if self.space_type is SpaceType.COSINE:
+        if self.normalize:
             vectors = normalize_rows(vectors)
         slots_dev = torch.from_numpy(slots).to(self.device)
         self._store(slots_dev, torch.from_numpy(np.ascontiguousarray(vectors)).to(self.device))
@@ -394,7 +421,8 @@ class FlatDeviceIndex:
             self._part_upsert(slots, parts, was_valid)
         self._valid_host[slots] = True
         self._epochs_host[slots] = epochs
-        self._vecs_host[slots] = vectors
+        if self._vecs_host is not None:
+            self._vecs_host[slots] = vectors
 
     def upsert_bulk_device(
         self,
@@ -413,6 +441,8 @@ class FlatDeviceIndex:
         n = int(hi) - int(lo)
         if n <= 0:
             return
+        if self.quantization is Quantization.B1:
+            raise ValueError("bulk device ingest does not support B1 packing")
         if tuple(rows_dev.shape) != (n, self.dimensions):
             raise ValueError(f"rows_dev shape {tuple(rows_dev.shape)} != {(n, self.dimensions)}")
         self.reserve(hi - 1)
@@ -420,19 +450,19 @@ class FlatDeviceIndex:
             raise ValueError("bulk device ingest requires fresh slots")
         rows = rows_dev.float()
         rh = np.asarray(rows_host, dtype=np.float32)
-        if self.space_type is SpaceType.COSINE:
+        if self.normalize:
             rows = rows / torch.clamp(rows.norm(dim=-1, keepdim=True), min=1e-30)
             rh = normalize_rows(rh)
         self._store(slice(lo, hi), rows)
         if partitions is not None:
-            self._require_unpartitioned_i8(partitions)
             parts = np.asarray(partitions, dtype=np.int64)
             self.parts[lo:hi] = torch.from_numpy(parts.astype(np.int32)).to(self.device)
             # fresh slots: plain appends to the directory
             self._part_upsert(np.arange(lo, hi, dtype=np.int64), parts, np.zeros(n, bool))
         self._valid_host[lo:hi] = True
         self._epochs_host[lo:hi] = epoch if epochs is None else epochs
-        self._vecs_host[lo:hi] = rh
+        if self._vecs_host is not None:
+            self._vecs_host[lo:hi] = rh
         self._live += n
 
     def remove_batch(self, slots: np.ndarray) -> None:
@@ -453,17 +483,6 @@ class FlatDeviceIndex:
             self._flush_part_dirty(dirty)
 
     # -- partition directory ---------------------------------------------------
-
-    def _require_unpartitioned_i8(self, partitions) -> None:
-        if (
-            self.quantization is Quantization.I8
-            and partitions is not None
-            and (np.asarray(partitions) >= 0).any()
-        ):
-            raise NotImplementedError(
-                "local (per-partition) I8 indexes are not ported yet "
-                "(ROADMAP.md, port queue: local I8 and B1/Hamming)"
-            )
 
     def partition_count(self, part_slot: int) -> int:
         """Live rows in one partition (O(1) from the directory; the serving
@@ -613,7 +632,12 @@ class FlatDeviceIndex:
     def _part_device_sync(self) -> None:
         """Bring the partition-major mirror up to date, with in-place writes
         except for the full rebuild. Every vector comes from the device's
-        flat tensors (no second upload)."""
+        flat tensors (no second upload). Lossy storage keeps no mirror."""
+        if self.lossy:
+            self._part_pending.clear()
+            self._part_refresh.clear()
+            self._part_rebuild = False
+            return
         pmax = self._part_rows_host.shape[1]
         npos = self._part_rows_host.shape[0] * pmax
         if self.part_vecs is None or self.part_vecs.shape[0] != npos or self._part_rebuild:
@@ -655,12 +679,13 @@ class FlatDeviceIndex:
         a, b), ``valid``, ``epochs`` and ``_vecs_host``, and its partition
         directory ``_part_bucket`` (a dict), ``_part_rows_host``,
         ``_part_count`` (both None without a directory), ``_slot_part``,
-        ``_slot_pos`` and ``_part_overflow``; an I8 index also takes its
-        rescore tier ``rescore_vectors`` and ``rescore_aux``, and its rank
-        coefficients come from the vectors (the JAX package keeps none for
-        I8: validity is ``valid`` alone). Capacity is rounded up to this
-        engine's scan block; rows are cut to its padded row length (the JAX
-        package pads to 128)."""
+        ``_slot_pos`` and ``_part_overflow``. An I8 or B1 index also takes
+        its rescore tier ``rescore_vectors`` and ``rescore_aux`` (when
+        rescoring is on) and no ``_vecs_host``; its rank coefficients come
+        from the vectors (the JAX package keeps none for lossy storage:
+        validity is ``valid`` alone). Capacity is rounded up to this engine's
+        scan block; rows are cut to its padded row length (the JAX package
+        pads to 128 elements, or 128 bytes for B1)."""
         dev = self.device
         valid = np.asarray(state["valid"], dtype=bool)
         n = valid.shape[0]
@@ -671,14 +696,15 @@ class FlatDeviceIndex:
         self.vectors[:n] = torch.from_numpy(np.ascontiguousarray(vecs)).to(self.dtype).to(dev)
         self.a = torch.zeros((cap,), dtype=torch.float32, device=dev)
         self.b = torch.full((cap,), INVALID_BIAS, dtype=torch.float32, device=dev)
-        if self.quantization is Quantization.I8:
+        if self.lossy:
             paux = np.stack([t.cpu().numpy() for t in paux_coeffs(self.space_type, self.vectors[:n])])
         self.a[:n] = torch.from_numpy(paux[0].copy()).to(dev)
         self.b[:n] = torch.from_numpy(np.where(valid, paux[1], INVALID_BIAS)).to(dev)
         self.aux = vector_aux(self.vectors, self.space_type, self.quantization)
         self._valid_host = _grown(valid, cap, False)
         self._epochs_host = _grown(np.asarray(state["epochs"], dtype=np.int32), cap, -1)
-        self._vecs_host = _grown(np.asarray(state["_vecs_host"], dtype=np.float32), cap, 0.0)
+        if self._vecs_host is not None:
+            self._vecs_host = _grown(np.asarray(state["_vecs_host"], dtype=np.float32), cap, 0.0)
         if self.rescore:
             rv = np.asarray(state["rescore_vectors"]).astype(np.float32)[:, : self.dp_rescore]
             self.rescore_vectors = torch.zeros((cap, self.dp_rescore), dtype=torch.bfloat16, device=dev)
@@ -750,29 +776,28 @@ class FlatDeviceIndex:
         ``allow_mask`` only the slots it allows are ranked (the scans read
         a copy of ``b`` that biases the others out); the partition
         directory serves only unmasked searches, as in the JAX package. An
-        I8 index ranks by the integer scan and the rescore tier; its raw
-        form holds true distances (``is_dist``), not rank values."""
-        self._require_unpartitioned_i8(partitions)
+        I8 or B1 index ranks by its own scan and the rescore tier; its
+        result holds the device's distances (``is_dist``), raw or not."""
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
-        if self.space_type is SpaceType.COSINE:
+        if self.normalize:
             queries = normalize_rows(queries)
         qs = self.query_tensor(queries) if queries_dev is None else queries_dev
         b_real = queries.shape[0]
         b = self.b if allow_mask is None else self.masked_bias(allow_mask)
+        psel = None
         if partitions is not None:
             if raw:
                 raise ValueError("a partitioned search has no raw form")
             psel = np.asarray(partitions, dtype=np.int64)
+        if self.lossy:
+            dist, rows = self._lossy_search(queries, qs, k, b, psel, directory=allow_mask is None)
+            return PendingSearch(packed=dist, rows=rows, b_real=b_real, k=k, is_dist=True)
+        if psel is not None:
             if allow_mask is None:
                 ids = self._partitioned_ids(qs, psel, k)
             else:
                 ids = self._masked_scan(qs, torch.from_numpy(psel.astype(np.int32)).to(self.device), k, b)
             return PendingSearch(packed=ids, b_real=b_real, k=k, q_f32=queries)
-        if self.quantization is Quantization.I8:
-            dist, rows = self._i8_search(queries, qs, k, b)
-            if raw:
-                return PendingSearch(packed=dist, rows=rows, b_real=b_real, k=k, is_dist=True)
-            return PendingSearch(packed=rows, b_real=b_real, k=k, q_f32=queries)
         rank, rows = rank_search(
             self.vectors, self.a, b, qs, k=k, block_rows=self.block_rows
         )
@@ -783,38 +808,46 @@ class FlatDeviceIndex:
     def _part_directory_wins(self) -> bool:
         """Does the directory (pmax rows a query) beat the masked scan (the
         whole capacity a query) at the H100's measured cost ratio?"""
-        return self._part_rows_host.shape[1] <= PART_CROSSOVER * self.capacity
+        crossover = PART_CROSSOVER_LOSSY if self.lossy else PART_CROSSOVER
+        return self._part_rows_host.shape[1] <= crossover * self.capacity
+
+    def _directory_buckets(self, psel: np.ndarray) -> torch.Tensor | None:
+        """[B] i32 directory bucket of each query (-1: a partition with no
+        rows) when the directory serves the batch: it exists, every query
+        names a partition, and it wins the crossover. None otherwise."""
+        if (
+            self._part_rows_host is None
+            or not bool((psel >= 0).all())
+            or not self._part_directory_wins()
+        ):
+            return None
+        bsel = np.fromiter((self._part_bucket.get(int(p), -1) for p in psel), np.int32, psel.shape[0])
+        return torch.from_numpy(bsel).to(self.device)
 
     def _partitioned_ids(self, qs: torch.Tensor, psel: np.ndarray, k: int) -> torch.Tensor:
-        """[B, k] i32 winner slots of a partitioned search (-1 empty).
-
-        Every query names a partition and the directory wins the crossover:
-        k <= 128 runs the partition scan kernel, larger k (the actor's
-        oversample steps) an exact gather of the buckets. Otherwise a masked
-        scan of the whole capacity, where psel -1 means every partition."""
-        nq = qs.shape[0]
-        if (
-            self._part_rows_host is not None
-            and bool((psel >= 0).all())
-            and self._part_directory_wins()
-        ):
-            bsel = np.fromiter(
-                (self._part_bucket.get(int(p), -1) for p in psel), np.int32, nq
+        """[B, k] i32 winner slots of a partitioned search of float storage
+        (-1 empty). Where the directory serves the batch, k <= 128 runs the
+        partition scan kernel, larger k (the actor's oversample steps) an
+        exact gather of the buckets. Otherwise a masked scan of the whole
+        capacity, where psel -1 means every partition."""
+        bsel = self._directory_buckets(psel)
+        if bsel is None:
+            return self._masked_scan(qs, torch.from_numpy(psel.astype(np.int32)).to(self.device), k)
+        pmax = self._part_rows_host.shape[1]
+        if k <= LANES:
+            return partition_candidates(
+                self.part_vecs, self.part_a, self.part_b, self.part_rows, qs, bsel, k=k, pmax=pmax,
             )
-            bsel_t = torch.from_numpy(bsel).to(self.device)
-            pmax = self._part_rows_host.shape[1]
-            if k <= LANES:
-                return partition_candidates(
-                    self.part_vecs, self.part_a, self.part_b, self.part_rows, qs,
-                    bsel_t, k=k, pmax=pmax,
-                )
-            return self._part_gather(qs, bsel_t, k)
-        return self._masked_scan(qs, torch.from_numpy(psel.astype(np.int32)).to(self.device), k)
+        return self._part_gather(qs, bsel, k)[1]
 
-    def _part_gather(self, qs: torch.Tensor, bsel: torch.Tensor, k: int) -> torch.Tensor:
+    def _part_gather(
+        self, qs: torch.Tensor, bsel: torch.Tensor, k: int
+    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Exact directory search (the JAX package's _part_search): gather
         each query's bucket from the flat tensors, rank by exact storage
-        distance, top-k; a chunk of queries at a time."""
+        distance, top-k with ties to the earlier bucket position; a chunk
+        of queries at a time. Returns (dist [B, k] f32 ascending, inf for
+        empty; slot [B, k] i32 or -1)."""
         nq, dp = qs.shape
         pmax = self.part_rows.shape[1]
         rows = torch.where(
@@ -822,22 +855,24 @@ class FlatDeviceIndex:
         )  # [B, pmax]
         q_aux = vector_aux(qs, self.space_type, self.quantization)
         kk = min(k, pmax)
-        out = torch.full((nq, k), -1, dtype=torch.int32, device=self.device)
-        step = max(1, PLAIN_CHUNK_ELEMS // (pmax * dp))
+        out_d = torch.full((nq, k), float("inf"), device=self.device)
+        out_i = torch.full((nq, k), -1, dtype=torch.int32, device=self.device)
+        width = 8 * dp if self.quantization is Quantization.B1 else dp  # unpacked bits
+        step = max(1, PLAIN_CHUNK_ELEMS // (pmax * width))
         for lo in range(0, nq, step):
             r = rows[lo : lo + step]
             safe = torch.clamp(r, min=0).long()
-            vb = self.vectors[safe]  # [c, pmax, Dp]
             d = query_block_distance(
-                qs[lo : lo + step], vb, self.space_type, self.quantization,
-                q_aux[lo : lo + step], vector_aux(vb, self.space_type, self.quantization),
+                qs[lo : lo + step], self.vectors[safe], self.space_type, self.quantization,
+                q_aux[lo : lo + step], self.aux[safe],
             )
             d = torch.where((r >= 0) & (self.b[safe] < INVALID_CUTOFF), d, float("inf"))
-            bd, sel = torch.topk(d, kk, dim=1, largest=False, sorted=True)
-            out[lo : lo + step, :kk] = torch.where(
+            bd, sel = stable_min_k(d, kk)
+            out_d[lo : lo + step, :kk] = bd
+            out_i[lo : lo + step, :kk] = torch.where(
                 torch.isfinite(bd), torch.gather(r, 1, sel), -1
             )
-        return out
+        return out_d, out_i
 
     def _flat_search(
         self,
@@ -848,10 +883,11 @@ class FlatDeviceIndex:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Exact scan of the whole capacity (the JAX package's
         _flat_search), block by block: [B, block_rows] storage-precision
-        distances per step and a running top-k; ``psel`` [B] masks each
-        query to its partition (-1 = every partition); rows whose bias (``b``,
-        by default ``self.b``) is INVALID_BIAS are skipped. Returns (dist
-        [B, k] f32 ascending, inf for empty; slot [B, k] i32 or -1)."""
+        distances per step and a running top-k (for lossy storage with ties
+        to the lower slot, as lax.top_k breaks them); ``psel`` [B] masks
+        each query to its partition (-1 = every partition); rows whose bias
+        (``b``, by default ``self.b``) is INVALID_BIAS are skipped. Returns
+        (dist [B, k] f32 ascending, inf for empty; slot [B, k] i32 or -1)."""
         b = self.b if b is None else b
         nq = qs.shape[0]
         q_aux = vector_aux(qs, self.space_type, self.quantization)
@@ -869,8 +905,14 @@ class FlatDeviceIndex:
                     (psel[:, None] < 0) | (self.parts[lo:hi][None, :] == psel[:, None])
                 )
             d = torch.where(keep, d, float("inf"))
-            bd, bi = torch.topk(d, min(k, vb.shape[0]), dim=1, largest=False)
-            best_d, best_i = merge_min_k(best_d, best_i, bd, (bi + lo).to(torch.int32))
+            kb = min(k, vb.shape[0])
+            if self.lossy:
+                bd, bi = stable_min_k(d, kb)
+            else:
+                bd, bi = torch.topk(d, kb, dim=1, largest=False)
+            best_d, best_i = merge_min_k(
+                best_d, best_i, bd, (bi + lo).to(torch.int32), stable=self.lossy
+            )
         return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
 
     def _masked_scan(
@@ -887,10 +929,10 @@ class FlatDeviceIndex:
         rq_aux: torch.Tensor,  # [B] f32
         k: int,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Re-rank the integer scan's oversampled candidates by their bf16
-        distances (the JAX package's _rescore_stage), a chunk of queries at
-        a time. Returns (dist [B, k] f32 ascending, slot [B, k] i32 or
-        -1)."""
+        """Re-rank the lossy scan's oversampled candidates by their bf16
+        distances in the declared space (the JAX package's _rescore_stage;
+        ties to the earlier candidate), a chunk of queries at a time.
+        Returns (dist [B, k] f32 ascending, slot [B, k] i32 or -1)."""
         nq, kc = cand.shape
         kk = min(k, kc)
         out_d = torch.full((nq, k), float("inf"), device=self.device)
@@ -904,21 +946,38 @@ class FlatDeviceIndex:
                 Quantization.BF16, rq_aux[lo : lo + step], self.rescore_aux[safe],
             )
             nd = torch.where(ci >= 0, nd, float("inf"))
-            bd, pos = torch.topk(nd, kk, dim=1, largest=False, sorted=True)
+            bd, pos = stable_min_k(nd, kk)
             out_d[lo : lo + step, :kk] = bd
             out_i[lo : lo + step, :kk] = torch.where(
                 torch.isfinite(bd), torch.gather(ci, 1, pos), -1
             )
         return out_d, out_i
 
-    def _i8_search(
-        self, queries: np.ndarray, qs: torch.Tensor, k: int, b: torch.Tensor
+    def _lossy_search(
+        self,
+        queries: np.ndarray,
+        qs: torch.Tensor,
+        k: int,
+        b: torch.Tensor,
+        psel: np.ndarray | None = None,
+        directory: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """I8 search of [B, D] (normalized) f32 queries, ``qs`` their I8
-        codes on the device, over the rows whose bias ``b`` is valid: the
-        integer scan fetches oversample x k candidates and the rescore tier
-        keeps k (with rescoring off, the scan's k in storage precision)."""
-        dist, rows = self._flat_search(qs, min(k * self.oversample, self.capacity), b=b)
+        """I8 or B1 search of [B, D] f32 queries (normalized where
+        ``self.normalize``), ``qs`` their storage rows on the device, over
+        the rows whose bias ``b`` is valid; ``psel`` restricts each query to
+        its partition. The directory's exact gather (where it serves the
+        batch and ``directory`` allows it) or the block-wise scan fetches
+        oversample x k candidates, min(oversample x k, pmax) from a bucket,
+        and the rescore tier keeps k (with rescoring off, the scan's k in
+        storage precision): the JAX package's _part_begin and search_begin.
+        Returns (dist [B, k] f32 ascending, slot [B, k] i32 or -1)."""
+        kc = k * self.oversample
+        bsel = self._directory_buckets(psel) if psel is not None and directory else None
+        if bsel is not None:
+            dist, rows = self._part_gather(qs, bsel, min(kc, self._part_rows_host.shape[1]))
+        else:
+            psel_t = None if psel is None else torch.from_numpy(psel.astype(np.int32)).to(self.device)
+            dist, rows = self._flat_search(qs, min(kc, self.capacity), psel_t, b)
         if not self.rescore:
             return dist[:, :k], rows[:, :k]
         rqs, rq_aux = prepare_queries(queries, self.space_type, Quantization.BF16)
@@ -933,6 +992,16 @@ class FlatDeviceIndex:
 
     def _postprocess(self, pending: PendingSearch, host: np.ndarray) -> list[SearchResult]:
         b_real = pending.b_real
+        if pending.is_dist:
+            # the device's distances, in the device's order (JAX "xla" kind)
+            d = host[:b_real, : pending.k]
+            i = pull_packed(pending.rows)[:b_real, : pending.k]
+            e = self._epochs_host[np.maximum(i, 0)]
+            ok = np.isfinite(d) & (i >= 0)
+            return [
+                SearchResult(slots=i[r][ok[r]].astype(np.int64), epochs=e[r][ok[r]], distances=d[r][ok[r]])
+                for r in range(b_real)
+            ]
         return ids_postprocess(
             self._vecs_host,
             self._epochs_host,

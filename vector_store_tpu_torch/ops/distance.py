@@ -1,17 +1,22 @@
 """Batched pairwise distances as matrix products.
 
-Counterpart of vector_store_tpu/ops/distance.py for float and I8 storage:
+Counterpart of vector_store_tpu/ops/distance.py:
 
 - EUCLIDEAN: squared L2, d = |q|^2 + |v|^2 - 2 q.v
 - COSINE: d = 1 - q.v / (|q| |v|), range [0, 2]
 - DOT_PRODUCT: d = 1 - q.v
+- HAMMING (and any B1 index, which forces Hamming): rows are packed 8
+  bits a byte; d = popcnt(q) + popcnt(v) - 2 (q_bits . v_bits), the
+  product taken over the bits unpacked to int8 {0, 1}.
 
-The per-vector auxiliary ("aux") is |v| for COSINE and unused otherwise.
-Float products run in f32 (F32 storage promises full f32 distances, so TF32
-stays off: see vector_store_tpu_torch/__init__.py). I8 queries and rows
-(codes round(127 v)) take an exact integer product, as the JAX package's
-int32 dot does, and are scaled by 1/127^2 after it; aux and norms live in
-the /127 domain.
+The per-vector auxiliary ("aux") is |v| for COSINE, popcnt(v) for
+HAMMING, unused otherwise. Float products run in f32 (F32 storage promises
+full f32 distances, so TF32 stays off: see vector_store_tpu_torch/__init__.py).
+I8 queries and rows (codes round(127 v)) take an exact integer product, as
+the JAX package's int32 dot does, and are scaled by 1/127^2 after it; aux
+and norms live in the /127 domain. The Hamming product is an exact integer
+too (the JAX package's bf16 {0, 1} product accumulates in f32, exact for
+any D < 2^24).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from vector_store_tpu_torch.core.types import Quantization, SpaceType
-from vector_store_tpu_torch.ops.quantize import I8_SCALE, padded_dim, quantize_for_storage
+from vector_store_tpu_torch.ops.quantize import I8_SCALE, padded_dim, quantize_for_storage, unpack_bits
 
 _EPS = 1e-30
 
@@ -32,12 +37,16 @@ def effective_space(space_type: SpaceType, quantization: Quantization) -> SpaceT
     return space_type
 
 
-def _require_float_space(space: SpaceType) -> None:
-    if space is SpaceType.HAMMING:
-        raise NotImplementedError(
-            "Hamming distance is not ported yet (ROADMAP.md, port queue: "
-            "B1/Hamming)"
-        )
+def _require_packed(quantization: Quantization) -> None:
+    """Hamming distance is defined on packed B1 rows; the JAX package
+    fails on any other storage (its bit unpacking shifts float values)."""
+    if quantization is not Quantization.B1:
+        raise ValueError(f"HAMMING distance needs packed B1 rows, not {quantization.name}")
+
+
+def popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each row of bytes: uint8 [..., Db] -> f32 [...]."""
+    return unpack_bits(x).sum(-1, dtype=torch.int32).float()
 
 
 def _values(x: torch.Tensor, quantization: Quantization) -> torch.Tensor:
@@ -51,9 +60,11 @@ def vector_aux(
     x: torch.Tensor, space_type: SpaceType, quantization: Quantization
 ) -> torch.Tensor:
     """Per-vector auxiliary of the storage rows ``x`` [..., Dp]: |v| for
-    cosine (summed in f64; I8 rows in the /127 domain), zeros otherwise."""
+    cosine (summed in f64; I8 rows in the /127 domain), the popcount of the
+    row's bytes for Hamming, zeros otherwise."""
     space = effective_space(space_type, quantization)
-    _require_float_space(space)
+    if space is SpaceType.HAMMING:
+        return popcount(x.contiguous().view(torch.uint8))
     if space is SpaceType.COSINE:
         v = x.double()
         if quantization is Quantization.I8:
@@ -107,7 +118,10 @@ def pairwise_distance(
 ) -> torch.Tensor:
     """Distances [B, Nb] f32."""
     space = effective_space(space_type, quantization)
-    _require_float_space(space)
+    if space is SpaceType.HAMMING:
+        _require_packed(quantization)
+        dot = _int_dot(unpack_bits(queries), unpack_bits(block))
+        return q_aux[:, None] + v_aux[None, :] - 2.0 * dot
     dot = _dot(queries, block, quantization)
     q2 = v2 = None
     if space is SpaceType.EUCLIDEAN:
@@ -125,9 +139,16 @@ def query_block_distance(
     v_aux: torch.Tensor,  # [B, m]
 ) -> torch.Tensor:
     """Distances [B, m] f32 between each query and its own m rows. I8
-    products are summed in f64: exact integers, rounded once to f32."""
+    products are summed in f64: exact integers, rounded once to f32. Hamming
+    products of unpacked bits sum in f32 (exact below 2^24 bits; TF32 is
+    off)."""
     space = effective_space(space_type, quantization)
-    _require_float_space(space)
+    if space is SpaceType.HAMMING:
+        _require_packed(quantization)
+        dot = torch.einsum(
+            "bd,bmd->bm", unpack_bits(queries).float(), unpack_bits(blocks).float()
+        )
+        return q_aux[:, None] + v_aux - 2.0 * dot
     if quantization is Quantization.I8:
         dot = torch.einsum("bd,bmd->bm", queries.double(), blocks.double()).float()
         dot = dot / (I8_SCALE * I8_SCALE)

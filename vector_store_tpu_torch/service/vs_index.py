@@ -26,12 +26,14 @@ per kernel launch, so the actor's core is a micro-batching loop:
   cached per filter and stamped with the table's mutation count;
 - adds are dropped when the memory governor says Cannot (usearch.rs:1156).
 
-Engine choice: global F32/F16/BF16/I8 indexes get the IVF engine ("auto"
-or "ivf") or the flat engine ("flat"); local (per-partition) F32/F16/BF16
-indexes get the flat engine whatever the kind says (its partition
-directory serves a query naming its partition; the JAX package's choice).
-Every other kind raises NotImplementedError naming its ROADMAP.md entry;
-no other engine stands in.
+Engine choice, as in the JAX package: global F32/F16/BF16/I8 indexes over
+euclidean/cosine/dot get the IVF engine ("auto" or "ivf") or the flat
+engine ("flat"); every B1 or Hamming index gets the flat engine under
+"auto" and "ivf", and a local (per-partition) index of any storage
+whatever the kind says (its partition directory serves a query naming its
+partition). An engine kind not ported yet ("graph" or a sharded one on a
+global index, the simulator, opensearch) raises NotImplementedError naming
+its ROADMAP.md entry; no other engine stands in.
 """
 
 from __future__ import annotations
@@ -112,19 +114,13 @@ def make_engine(
     port does not serve yet."""
     vs = metadata.vs_options
     is_local = not metadata.partitioning.is_global
-    if not ivf_supports(vs.space_type, vs.quantization):
-        raise NotImplementedError(
-            f"{vs.quantization.name} storage / {vs.space_type.name} distance is "
-            "not ported yet (ROADMAP.md, port queue: B1/Hamming)"
-        )
-    if is_local and vs.quantization is Quantization.I8:
-        raise NotImplementedError(
-            "local (per-partition) I8 indexes are not ported yet (ROADMAP.md, "
-            "port queue: local I8 and B1/Hamming)"
-        )
     if is_local and (engine_kind in ("auto", "ivf", "graph") or engine_kind.endswith("-sharded")):
         # local indexes stay on one card's flat engine (the JAX package's
         # routing: the IVF, graph and sharded engines are global-index paths)
+        engine_kind = "flat"
+    elif engine_kind in ("auto", "ivf") and not ivf_supports(vs.space_type, vs.quantization):
+        # B1 storage and Hamming distance: the exact flat engine (its
+        # Hamming scan and bf16 rescore tier), as in the JAX package
         engine_kind = "flat"
     if engine_kind not in ("auto", "ivf", "flat"):
         raise NotImplementedError(
@@ -821,11 +817,20 @@ class VsIndexActor:
         return out
 
     def _distance(self, d: float) -> Distance:
-        if self.space_type is SpaceType.COSINE:
+        """The engine's distance as the API reports it. A B1 index reports a
+        Hamming distance: the rounded engine distance, which with rescoring
+        on is the rescore tier's distance in the declared space (the JAX
+        package's behaviour, kept)."""
+        st = self.space_type
+        if self.quantization is Quantization.B1:
+            st = SpaceType.HAMMING
+        if st is SpaceType.HAMMING:
+            return Distance(float(max(0.0, round(d))), st, self.dimensions)
+        if st is SpaceType.COSINE:
             d = min(max(d, 0.0), 2.0)
-        elif self.space_type is SpaceType.EUCLIDEAN:
+        elif st is SpaceType.EUCLIDEAN:
             d = max(d, 0.0)
-        return Distance(d, self.space_type)
+        return Distance(d, st)
 
     def _finish(self, req: _SearchRequest, result) -> None:
         loop = req.future.get_loop()
