@@ -99,6 +99,19 @@ failure:
    (its kernel takes float rows only, as the JAX package's), and the
    gather against the masked scan at B 64 and B 2048 beside the engine's
    crossover constant, and the f64 block distance against an f32 sum.
+11. graph service: graph-1000k of vector_store_tpu/benchkit/scale.py
+   (1,000,000 x 128 clustered rows in 512 clusters, EUCLIDEAN, BF16, the
+   index's default connectivity 16 and expansion 128 / 64) served under
+   ``engine_kind="graph"``: the build path the actor's first merge took,
+   the seconds until the delta is merged and the refinement pass is done,
+   graph_nodes (== 1,000,000) and device_bytes; recall@10 against exact
+   f32 over 512 held queries (>= 0.90), QPS and p50 at 64 in flight; one
+   beam-search batch at B 64 and B 2048 (CUDA events); one kNN chunk of
+   the bulk build (B 2048 stored rows) against fused_scan_plain; 256
+   self-queries and 256 CDC inserts (all found first at distance 0 while
+   in the delta, with the merges held back; each stored or merged row
+   found first at distance 0.0 exactly, at least GRAPH_FOUND_MIN of them)
+   and a delete; kernel 1's launches by purpose (build, merge, search).
    The smoke's total wall time is printed last of all phases.
 
 Phase 3 also holds both scans under a slot filter against their plain
@@ -147,6 +160,15 @@ B1_ROWS = I8_ROWS  # the dbpedia-i8 shape, stored as B1
 B1_REQUESTS = 128
 B1_OVERSAMPLE = 4  # the flat engine's default
 B1_ORACLE = 32  # queries held to the Hamming oracle
+# graph-1000k (vector_store_tpu/benchkit/scale.py:41-130): 1M x 128 rows in
+# 512 clusters, EUCLIDEAN, BF16, the index's default graph options
+GRAPH_ROWS, GRAPH_CLUSTERS, GRAPH_HELD = 1_000_000, 512, 512
+GRAPH_SELF, GRAPH_CDC = 256, 256  # self-queries; CDC inserts, checked in the delta and merged
+# the share of stored (or merged) rows a graph self-query must find first:
+# at graph-1000k after the refinement pass the beam (ef 64) found 0.877 of
+# 1024 stored rows and 0.875 of 256 rows merged in one slice
+# (vector_store_tpu_torch/bench/graph_reach.py on an H100; PERF.md section 6)
+GRAPH_FOUND_MIN = 0.75
 # each kernel's time under the port's first scan core, before its redesign
 # for Hopper: ms at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W,
 # copied from PERF.md section 5 (that core's last full smoke run), not
@@ -746,8 +768,9 @@ def clustered_rows(rng, n: int, dims: int = DIMS, n_clusters: int = N_CLUSTERS) 
     return rows
 
 
-def exact_top_k(data: torch.Tensor, queries: torch.Tensor, k: int) -> np.ndarray:
-    """Exact cosine top-k ids on the card, in chunks of rows."""
+def exact_top_k(data: torch.Tensor, queries: torch.Tensor, k: int, space: str = "COSINE") -> np.ndarray:
+    """Exact f32 top-k ids on the card (cosine, or the named space), in
+    chunks of rows."""
     from vector_store_tpu_torch.core.types import Quantization, SpaceType
     from vector_store_tpu_torch.ops.distance import pairwise_distance
     from vector_store_tpu_torch.ops.topk import merge_min_k
@@ -757,7 +780,7 @@ def exact_top_k(data: torch.Tensor, queries: torch.Tensor, k: int) -> np.ndarray
     best_i = torch.full((queries.shape[0], k), -1, dtype=torch.int64, device=queries.device)
     for lo in range(0, data.shape[0], 262_144):
         block = data[lo : lo + 262_144]
-        d = pairwise_distance(queries, block, SpaceType.COSINE, Quantization.F32, qn, block.norm(dim=1))
+        d = pairwise_distance(queries, block, SpaceType[space], Quantization.F32, qn, block.norm(dim=1))
         bd, bi = torch.topk(d, k, dim=1, largest=False)
         best_d, best_i = merge_min_k(best_d, best_i, bd, bi + lo)
     return best_i.cpu().numpy()
@@ -1572,6 +1595,210 @@ async def local_i8_phase(device, card: str) -> None:
         await service.stop()
 
 
+async def graph_phase(device, card: str) -> dict:
+    """Phase 11: graph-1000k served over HTTP under ``engine_kind="graph"``;
+    returns kernel 1's launches of the phase by purpose."""
+    import aiohttp
+
+    from vector_store_tpu_torch.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, delete_row, make_vs_metadata, vector_row
+    from vector_store_tpu_torch.engine.graph import graph_beam_search
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops.distance import prepare_queries
+    from vector_store_tpu_torch.run import serve
+    from vector_store_tpu_torch.service.config import Config
+
+    rng = np.random.default_rng(SEED + 9)
+    n = GRAPH_ROWS
+    t_gen = time.perf_counter()
+    data = clustered_rows(rng, n, DIMS, GRAPH_CLUSTERS)
+    held = data[rng.integers(0, n, size=GRAPH_HELD)] + rng.standard_normal((GRAPH_HELD, DIMS), dtype=np.float32) * (
+        np.float32(0.1 / np.sqrt(DIMS))
+    )
+    gt = exact_top_k(torch.from_numpy(data).to(device), torch.from_numpy(held).to(device), K, "EUCLIDEAN")
+    torch.cuda.empty_cache()
+    print(f"[graph] {n} x {DIMS} rows in {GRAPH_CLUSTERS} clusters and exact ground truth in "
+          f"{time.perf_counter() - t_gen:.1f} s", flush=True)
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl5", ("pk",)))
+    metadata = make_vs_metadata(index="gidx", table="tbl5", dimensions=DIMS, space_type=SpaceType.EUCLIDEAN,
+                                quantization=Quantization.BF16)  # connectivity 16, expansion 128 / 64
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row((i,), data[i], 100) for i in range(n))))
+    port = free_port()
+    by = {"build": 0, "merge": 0, "search": 0}
+
+    def counted(fn, purpose):
+        def wrapper(*args, **kwargs):
+            before = fs.fused_scan.launches
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                by[purpose] += fs.fused_scan.launches - before
+        return wrapper
+
+    t0 = time.perf_counter()
+    config = Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1, engine_kind="graph")
+    service = await serve(db, config, device=device)
+    try:
+        async with aiohttp.ClientSession() as http:
+            client = Http(http, f"http://127.0.0.1:{port}/api/v1/indexes/ks/gidx")
+            engine = None
+            while engine is None:  # the actor exists once the index is registered
+                entry = service.indexes.get_vs(metadata.key)
+                engine = entry.actor.engine if entry is not None else None
+                await asyncio.sleep(0.05)
+            # the bulk builds (device, or host through it) and every merge
+            # or refinement slice
+            for name, purpose in (("bulk_build_device", "build"), ("_insert_into_graph", "merge")):
+                setattr(engine, name, counted(getattr(engine, name), purpose))
+            await client.wait_for(lambda: client.counted(n), f"{n} rows")
+            ingest_s = time.perf_counter() - t0
+            marks = {}
+
+            async def idle() -> bool:
+                if engine.delta_count == 0 and "merged" not in marks:
+                    marks["merged"] = time.perf_counter()
+                return not engine.maintenance_due
+
+            await client.wait_for(idle, "the graph's merges and refinement to fall idle", timeout=900)
+            t_idle = time.perf_counter()
+            path = {"device": "device bulk build", "host": "host bulk build"}.get(
+                engine.last_build, "bootstrap + incremental merges of 4096")
+            print(f"[graph] {n} rows ingested in {ingest_s:.1f} s; build path: {path}; delta drained "
+                  f"{marks['merged'] - t0 - ingest_s:.1f} s after ingest, maintenance idle "
+                  f"{t_idle - t0 - ingest_s:.1f} s after ingest (refinement {t_idle - marks['merged']:.1f} s); "
+                  f"graph_nodes {engine.graph_nodes}, device_bytes {engine.device_bytes}, entries "
+                  f"{len(engine._entries)}", flush=True)
+            check(engine.graph_nodes == n, f"graph_nodes {engine.graph_nodes} != {n}")
+
+            # -- the search path, counted ------------------------------------
+            fs.fused_scan.launches = 0
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat: list[float] = []
+
+            async def one(q):
+                async with sem:
+                    t = time.perf_counter()
+                    res = await client.ann(q)
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]["pk"]
+
+            requests = np.concatenate([held, held])
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*(one(q) for q in requests))
+            wall = time.perf_counter() - t1
+            by["search"] = fs.fused_scan.launches
+            recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got[:GRAPH_HELD], gt)]))
+            print(f"[graph] recall@{K} {recall:.4f} over {GRAPH_HELD} held queries (exact f32 ground truth); "
+                  f"{len(requests) / wall:.0f} QPS and p50 {1e3 * statistics.median(lat):.1f} ms at {IN_FLIGHT} "
+                  "in flight (client in the same process)", flush=True)
+            check(recall >= RECALL_MIN, f"graph recall@{K} {recall:.4f} < {RECALL_MIN}")
+
+            # -- one beam-search batch, CUDA events ----------------------------
+            store = engine.store
+            beam_ms = {}
+            for b in (64, 2048):
+                qs, qa = prepare_queries(np.resize(held, (b, DIMS)), SpaceType.EUCLIDEAN, Quantization.BF16)
+                qs, qa = qs.to(device), qa.to(device)
+                allow = torch.ones((store.capacity,), dtype=torch.bool, device=device)
+                entries, valid = engine._entries_tensor(), engine._valid()
+
+                def beam(qs=qs, qa=qa, allow=allow, entries=entries, valid=valid):
+                    return graph_beam_search(
+                        store.vectors, store.aux, valid, allow, engine.adjacency, entries, qs, qa,
+                        space=SpaceType.EUCLIDEAN, quant=Quantization.BF16, k=16,
+                        beam_width=engine.expansion_search, iters=engine.expansion_search, filtered=False,
+                        expand=engine.beam_expand,
+                    )
+
+                beam_ms[b] = median_ms(beam, reps=5)
+                t = time.perf_counter()
+                engine.search(np.resize(held, (b, DIMS)), K)
+                beam_ms[f"search {b}"] = 1e3 * (time.perf_counter() - t)
+            print(f"[graph] one beam-search batch (k 16, ef {engine.expansion_search}, expand "
+                  f"{engine.beam_expand}; CUDA events): B 64 {beam_ms[64]:.3f} ms, B 2048 {beam_ms[2048]:.3f} ms; "
+                  f"engine.search with its host collect: B 64 {beam_ms['search 64']:.1f} ms, B 2048 "
+                  f"{beam_ms['search 2048']:.1f} ms", flush=True)
+
+            # -- one kNN chunk of the bulk build against the plain scan -------
+            qd = store.vectors[:2048]
+            rank, pos = fs.fused_scan(qd, store.vectors, store.a, store.b, store.block_rows)
+            prank, ppos = fs.fused_scan_plain(qd, store.vectors, store.a, store.b, store.block_rows)
+            a, bb, block = store.a, store.b, store.block_rows
+
+            def exact(qi, rows):
+                return a[rows] * (qd[qi].float() * store.vectors[rows].float()).sum(-1) + bb[rows]
+
+            def group(qi, col, rows=None):
+                if rows is None:
+                    return (col // fs.LANES) * block + col % fs.LANES
+                return (rows // block) * block + rows % fs.LANES
+
+            err = compare("graph kNN chunk", rank, pos, prank, ppos, exact, group)
+            del rank, pos, prank, ppos
+            print(f"[graph] one kNN chunk of the bulk build (B 2048 stored BF16 rows over {store.capacity} rows): "
+                  f"kernel against fused_scan_plain, max |rank err| {err:.3g} (tolerance {RTOL:g} * (1 + |r|))",
+                  flush=True)
+
+            # -- self-queries; CDC inserts in the delta, then in the graph; a delete.
+            # A stored row is not always reached by the beam (the held
+            # queries' recall counts those misses too), so the graph's
+            # answers are held to a share: every row found must come first
+            # at distance 0.0 exactly (the f32 host mirror's distance), and
+            # at least GRAPH_FOUND_MIN of the rows must be found; rows in
+            # the delta are scanned exactly and must all be found
+            async def found_first(rows, pks) -> int:
+                async def one(v, pk):
+                    async with sem:
+                        res = await client.ann(v)
+                    first = res["primary_keys"]["pk"][0] == pk
+                    check(not first or res["distances"][0] == 0.0, f"row {pk} answered at {res['distances'][0]}")
+                    return first
+
+                return sum(await asyncio.gather(*(one(v, int(pk)) for v, pk in zip(rows, pks))))
+
+            picked = rng.choice(n, size=GRAPH_SELF, replace=False)
+            self_hits = await found_first(data[picked], picked)
+            dbi = db.db_indexes[metadata.key]
+            real = engine.maintain
+            engine.maintain = lambda max_batch=4096: False  # the smoke holds the merges back
+            # new rows inside the data's clusters (stored rows moved by noise)
+            new = data[rng.integers(0, n, size=GRAPH_CDC)] + rng.standard_normal((GRAPH_CDC, DIMS), dtype=np.float32) * (
+                np.float32(0.1 / np.sqrt(DIMS))
+            )
+            for j in range(GRAPH_CDC):
+                await dbi.push_cdc(vector_row((n + j,), new[j], 200))
+            await client.wait_for(lambda: client.counted(n + GRAPH_CDC), "the CDC rows", timeout=60)
+            check(engine.delta_count == GRAPH_CDC, f"{engine.delta_count} CDC rows in the delta")
+            delta_hits = await found_first(new, range(n, n + GRAPH_CDC))
+            check(delta_hits == GRAPH_CDC, f"{delta_hits} of {GRAPH_CDC} CDC rows found in the delta")
+            engine.maintain = real  # the next modify batch makes a merge due
+            await dbi.push_cdc(vector_row((n + GRAPH_CDC,), new[0] + 1.0, 201))
+
+            async def merged() -> bool:
+                return engine.delta_count == 0 and engine.graph_nodes == n + GRAPH_CDC + 1
+
+            await client.wait_for(merged, "the CDC rows' merge", timeout=120)
+            graph_hits = await found_first(new, range(n, n + GRAPH_CDC))
+            await dbi.push_cdc(delete_row((n,), 300))
+            await client.wait_for(lambda: client.counted(n + GRAPH_CDC), "the delete", timeout=60)
+            res = await client.ann(new[0], 100)
+            check(n not in res["primary_keys"]["pk"], f"a deleted row still answers: {res['primary_keys']['pk'][:5]}")
+            print(f"[graph] found first at distance 0 (limit {K}): {self_hits} of {GRAPH_SELF} stored rows; "
+                  f"{delta_hits} of {GRAPH_CDC} CDC inserts in the delta, {graph_hits} of them after their merge; "
+                  f"a deleted row no longer answers. Kernel 1 launches of the phase (BF16 rows): {by}", flush=True)
+            check(self_hits >= GRAPH_FOUND_MIN * GRAPH_SELF, f"{self_hits} of {GRAPH_SELF} stored rows found")
+            check(graph_hits >= GRAPH_FOUND_MIN * GRAPH_CDC, f"{graph_hits} of {GRAPH_CDC} merged CDC rows found")
+            check(by["build"] + by["merge"] > 0, f"kernel 1 never launched while the graph was built: {by}")
+            print(f"[graph] smoke readings on {card}: ingest {ingest_s:.1f} s, maintenance idle "
+                  f"{t_idle - t0 - ingest_s:.1f} s after ingest ({path}), recall@{K} {recall:.4f}, "
+                  f"{len(requests) / wall:.0f} QPS, p50 {1e3 * statistics.median(lat):.1f} ms", flush=True)
+            return by
+    finally:
+        await service.stop()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
@@ -1625,6 +1852,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     host_line("the local I8 service")
     asyncio.run(local_i8_phase(device, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the graph service")
+    asyncio.run(graph_phase(device, card))
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:
         entry["launches"] = launches[entry["name"]]

@@ -36,7 +36,7 @@ torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
 from test_torch_i8 import assert_same_topk  # noqa: E402
-from torch_parity import to_jax  # noqa: E402
+from torch_parity import jax_flat_state, to_jax  # noqa: E402
 from vector_store_tpu.ops import distance as jdist  # noqa: E402
 from vector_store_tpu.ops import quantize as jquant  # noqa: E402
 from vector_store_tpu_torch.core.types import Quantization, SpaceType  # noqa: E402
@@ -46,23 +46,6 @@ from vector_store_tpu_torch.ops import distance, quantize  # noqa: E402
 B1, BF16 = Quantization.B1, Quantization.BF16
 SPACES = (SpaceType.EUCLIDEAN, SpaceType.COSINE, SpaceType.DOT_PRODUCT)
 CPU = torch.device("cpu")
-
-
-def jax_flat_state(j) -> dict:
-    """The attributes of a JAX FlatDeviceIndex that the port's
-    ``FlatDeviceIndex.load_state`` takes, as numpy arrays."""
-    state = {
-        "vectors": np.asarray(j.vectors), "paux": np.asarray(j.paux),
-        "valid": np.asarray(j.valid), "epochs": np.asarray(j.epochs),
-        "_vecs_host": j._vecs_host, "_part_bucket": j._part_bucket,
-        "_part_rows_host": j._part_rows_host, "_part_count": j._part_count,
-        "_slot_part": j._slot_part, "_slot_pos": j._slot_pos,
-        "_part_overflow": j._part_overflow,
-    }
-    if j.rescore:
-        state["rescore_vectors"] = np.asarray(j.rescore_vectors)
-        state["rescore_aux"] = np.asarray(j.rescore_aux)
-    return state
 
 
 def jax_flat(d, space, rescoring=True, block=128, capacity=1024):

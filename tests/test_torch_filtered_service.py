@@ -17,9 +17,10 @@ vector_store_tpu_torch.run.build_service on torch.device("cpu"):
   JAX case drives the simulator engine, which the port does not have);
 - one run of the same filtered requests through the JAX service and the
   port's, each regime in turn: keys equal, distances within 1e-6;
-- local indexes under the engine kinds the port does not serve (graph,
-  ivf-sharded, graph-sharded) take the flat engine and answer 200, while a
-  global index under them answers 500 naming its ROADMAP entry.
+- local indexes under the engine kinds that serve only global indexes
+  (graph, ivf-sharded, graph-sharded) take the flat engine and answer 200;
+  a global index under the graph kind takes the graph engine and answers
+  200, under the sharded kinds (not ported) 500 naming its ROADMAP entry.
 """
 
 import asyncio
@@ -296,6 +297,7 @@ async def test_filtered_regimes_answer_like_jax_service():
 @pytest.mark.parametrize("kind", ("graph", "ivf-sharded", "graph-sharded"))
 async def test_local_index_served_under_unported_engine_kinds(kind):
     from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
+    from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
 
     config = Config(monitor_indexes_interval=0.05, engine_kind=kind)
     # a local index: 4 partitions x 5 rows
@@ -323,7 +325,8 @@ async def test_local_index_served_under_unported_engine_kinds(kind):
     finally:
         await client.close()
         await service.stop()
-    # a global index under the same kind is not served
+    # a global index under the same kind: the graph engine serves it, a
+    # sharded kind is not ported
     db = labelled_db(RNG.normal(size=(10, 4)).astype(np.float32), np.zeros(10, np.int64))
     service, client = await start(db, config=config)
     try:
@@ -333,8 +336,16 @@ async def test_local_index_served_under_unported_engine_kinds(kind):
         ):
             assert asyncio.get_event_loop().time() < deadline
             await asyncio.sleep(0.05)
+        body = {"vector": [1.0, 0, 0, 0], "limit": 1, "filter": bucket_filter(0)}
+        if kind == "graph":
+            assert isinstance(entry.actor.engine, GraphDeviceIndex)
+            await wait_serving(client, 10)
+            resp = await client.post("/api/v1/indexes/ks/idx/ann", json=body)
+            assert resp.status == 200, await resp.text()
+            assert len((await resp.json())["primary_keys"]["pk"]) == 1
+            return
         assert entry.actor.engine is None
-        resp = await client.post("/api/v1/indexes/ks/idx/ann", json={"vector": [1.0, 0, 0, 0], "limit": 1})
+        resp = await client.post("/api/v1/indexes/ks/idx/ann", json=body)
         text = await resp.text()
         assert resp.status == 500 and "not ported yet" in text and "ROADMAP" in text, text
     finally:

@@ -324,6 +324,38 @@ def test_i8_ivf_loaded_from_jax_serves_like_jax():
     assert recall(got) >= recall(want)
 
 
+@pytest.mark.parametrize("space", SPACES, ids=lambda s: s.name)
+def test_delta_only_i8_without_rescoring_answers_like_jax(space):
+    """An I8 IVF engine with rescoring off and no main region yet answers
+    with its delta's storage-precision distances, in the delta's order
+    (ties to the lower delta position), as the JAX engine does: the same
+    slots in the same order, distances within 1e-6; with updates and
+    removals of delta rows between."""
+    from vector_store_tpu.engine.ivf import IvfDeviceIndex as JaxIvf
+
+    rng = np.random.default_rng(17)
+    n, d, k = 400, 16, 20
+    vecs = space_rows(rng, n, d, space)
+    j = JaxIvf(
+        d, space_type=to_jax(space), quantization=to_jax(I8), initial_capacity=1024, min_build=4096,
+        rescoring=False, interpret=True, query_i8=False, approx_select=False,
+    )
+    p = IvfDeviceIndex(d, space_type=space, quantization=I8, device=CPU, initial_capacity=1024,
+                       min_build=4096, rescoring=False)
+    order = rng.permutation(n)
+    for eng in (j, p):
+        eng.upsert_batch(order, np.full(n, 3, np.int32), vecs[order])
+        eng.upsert_batch(order[:20], np.full(20, 4, np.int32), vecs[order[20:40]])
+        eng.remove_batch(order[40:50])
+    assert j.main_vecs is None and p.main_vecs is None and p.oversample == 1
+    queries = vecs[rng.integers(0, n, 12)] + 0.02 * rng.normal(size=(12, d)).astype(np.float32)
+    for got, want in zip(p.search(queries, k), j.search(queries, k)):
+        np.testing.assert_array_equal(got.slots, want.slots)
+        np.testing.assert_array_equal(got.epochs, want.epochs)
+        np.testing.assert_allclose(got.distances, want.distances, rtol=1e-6, atol=1e-6)
+        assert not set(got.slots.tolist()) & set(order[40:50].tolist())
+
+
 def test_stage_ablation_combo_equals_base_on_cpu():
     from vector_store_tpu_torch.bench import ivf_stage
 

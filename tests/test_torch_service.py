@@ -4,9 +4,9 @@ Both services are seeded with the same FakeDb contents (100 rows in 3-d,
 one default index: COSINE, F32, global) and served on local ports; the
 same ANN requests must return the same primary keys with distances within
 1e-6. A self-query returns distance 0.0, a CDC upsert becomes searchable,
-and an engine kind the port does not serve yet (the graph engine, a sharded
-engine, for a global index) answers with its NotImplementedError instead of
-another engine.
+the graph engine serves a global index under ``engine_kind="graph"``, and
+an engine kind the port does not serve yet (a sharded engine, for a global
+index) answers with its NotImplementedError instead of another engine.
 
 A local (per-partition) index is served like the JAX service serves it:
 4 partitions x 5 rows with a (pk, ck) primary key, the layout of
@@ -159,10 +159,12 @@ async def test_global_i8_index_serves_like_jax_service():
 
 
 # every storage kind is served (B1 and local indexes by the flat engine:
-# tests/test_torch_openapi_quantization.py); the graph and sharded engines
-# are not ported, and a global index under them is refused
-@pytest.mark.parametrize("engine_kind", ["graph", "ivf-sharded"])
+# tests/test_torch_openapi_quantization.py); a global B1 index under the
+# graph engine too; the sharded engines are not ported, and a global index
+# under them is refused
+@pytest.mark.parametrize("engine_kind", ["graph", "ivf-sharded", "graph-sharded"])
 async def test_unported_index_kinds_answer_not_implemented(engine_kind):
+    from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
     from vector_store_tpu_torch.run import serve
 
     vecs = np.random.default_rng(6).normal(size=(10, DIMS)).astype(np.float32)
@@ -179,9 +181,17 @@ async def test_unported_index_kinds_answer_not_implemented(engine_kind):
                 assert asyncio.get_running_loop().time() < deadline
                 await asyncio.sleep(0.05)
             actor = entry.actor
-            assert actor.engine is None and isinstance(actor.unsupported, NotImplementedError)
             # a filtered query reaches the actor as well
             restrict = {"restrictions": [{"type": "==", "lhs": "pk", "rhs": 0}], "allow_filtering": True}
+            if engine_kind == "graph":  # ported: the graph engine serves it
+                assert isinstance(actor.engine, GraphDeviceIndex) and actor.unsupported is None
+                await wait_count(http, base, len(vecs))
+                status, body = await ann(http, base, vecs[0], 1, filter=restrict)
+                assert status == 200 and body["primary_keys"]["pk"] == [0], body
+                status, body = await ann(http, base, vecs[3], 1)
+                assert status == 200 and body["primary_keys"]["pk"] == [3], body
+                return
+            assert actor.engine is None and isinstance(actor.unsupported, NotImplementedError)
             status, body = await ann(http, base, vecs[0], 1, filter=restrict)
             assert status == 500 and "not ported yet" in body and "ROADMAP" in body
             async with http.get(f"{base}/status") as resp:

@@ -7,18 +7,15 @@ inserted in a shuffled order, driven over HTTP through
 vector_store_tpu_torch.run.build_service on torch.device("cpu"); each case
 also runs the JAX service on the same rows, and the port answers with the
 same primary keys, distances within 1e-6, where both fetch the same
-candidates and break ties alike. Two cases of the IVF engine differ:
-
-- at F32 the port's fused scan (kernel 1; its plain version on the CPU)
-  keeps one minimum a lane of 128, as the JAX package's Pallas kernel
-  does on a TPU, where the JAX engine on the CPU runs its exact XLA scan:
-  at k 100 over 500 rows the two share 75 keys (group-min kernels compare
-  by recall against an exact oracle, ROADMAP queue 3), and every key both
-  return has the same distance within 1e-6;
-- at I8 without rescoring the two return the same keys, but the JAX
-  service reports the storage-precision distances and orders equal ones
-  by its region merge, where the port reports exact f32 distances in the
-  device's order (ROADMAP queue 3, open): the keys are compared as sets.
+candidates and break ties alike. One case of the IVF engine differs: at
+F32 the port's fused scan (kernel 1; its plain version on the CPU) keeps
+one minimum a lane of 128, as the JAX package's Pallas kernel does on a
+TPU, where the JAX engine on the CPU runs its exact XLA scan: at k 100
+over 500 rows the two share 75 keys (group-min kernels compare by recall
+against an exact oracle, ROADMAP queue 3), and every key both return has
+the same distance within 1e-6. At I8 without rescoring both answer from
+the delta (500 rows: no main region yet) with its storage-precision
+distances, in its order: the same keys in the same order.
 
 The four cases run at I8, and the quantized ones also at B1, which every
 row of this data packs to the same bits (all components > 0): every
@@ -121,7 +118,7 @@ async def _ann(client) -> dict:
 async def _answers(port, jax, compare="keys"):
     """Both services' pks; ``compare`` the port's against the JAX
     service's: "keys" (equal lists, equal distances), "common" (equal
-    distances of the keys both return), "set" (equal key sets) or None."""
+    distances of the keys both return) or None."""
     got, want = await _ann(port[1]), await _ann(jax[1])
     pks, jax_pks = got["primary_keys"]["pk"], want["primary_keys"]["pk"]
     if compare == "keys":
@@ -131,8 +128,6 @@ async def _answers(port, jax, compare="keys"):
         common = sorted(set(mine) & set(theirs))
         assert common
         np.testing.assert_allclose([mine[k] for k in common], [theirs[k] for k in common], rtol=0, atol=1e-6)
-    if compare == "set":
-        assert set(pks) == set(jax_pks)
     return pks, jax_pks
 
 
@@ -166,7 +161,7 @@ async def test_quantized_index_misranks_without_rescoring(quant):
     try:
         engine = _engine(port)
         assert engine.rescoring is False and engine.oversample == 1
-        pks, _ = await _answers(port, jax, "set" if quant is I8 else "keys")
+        pks, _ = await _answers(port, jax)
         assert pks != sorted(pks), "the rescoring=false option is not reaching the engine"
     finally:
         await _stop(port, jax)

@@ -1,7 +1,8 @@
 """Shared helpers of the port's parity tests: the port and the JAX package
 define their own enums (``core.types``), so a test gives each side its own
-member, mapped by class and member name; and a JAX IVF engine's state is
-carried into the port's with ``load_state(jax_state(j))``."""
+member, mapped by class and member name; and a JAX engine's state is
+carried into the port's with ``load_state``: ``jax_state`` of an IVF engine,
+``jax_flat_state`` of a flat one, ``jax_graph_state`` of a graph one."""
 
 import numpy as np
 
@@ -36,4 +37,59 @@ def jax_state(j) -> dict:
         "delta_paux": np.asarray(j._delta.paux),
         "delta_valid": np.asarray(j._delta.valid),
         "delta_epochs": np.asarray(j._delta.epochs),
+    }
+
+
+def jax_flat_state(j, vecs_host=None) -> dict:
+    """The attributes of a JAX FlatDeviceIndex that the port's
+    ``FlatDeviceIndex.load_state`` takes, as numpy arrays. A float store
+    of the JAX package off the TPU keeps neither rank coefficients nor an
+    f32 mirror (``_vecs_host``); the port's always does: the coefficients
+    come from the stored rows, and ``vecs_host`` gives the mirror's rows
+    (the f32 rows as stored: unit rows for cosine), by default the stored
+    values."""
+    state = {
+        "vectors": np.asarray(j.vectors), "paux": np.asarray(j.paux),
+        "valid": np.asarray(j.valid), "epochs": np.asarray(j.epochs),
+        "_vecs_host": j._vecs_host, "_part_bucket": j._part_bucket,
+        "_part_rows_host": j._part_rows_host, "_part_count": j._part_count,
+        "_slot_part": j._slot_part, "_slot_pos": j._slot_pos,
+        "_part_overflow": j._part_overflow,
+    }
+    lossy = j.quantization.name in ("I8", "B1")
+    if not j.use_pallas and not lossy:
+        # the JAX store keeps its rank coefficients for its Pallas scan only
+        from vector_store_tpu.ops.pallas_scan import paux_coeffs
+
+        a, b = paux_coeffs(j.space_type, np.asarray(j.vectors).astype(np.float32))
+        state["paux"] = np.stack([a, b])
+    if state["_vecs_host"] is None and not lossy:
+        if vecs_host is None:
+            vecs_host = np.asarray(j.vectors).astype(np.float32)[:, : j.dimensions]
+        mirror = np.zeros((state["valid"].shape[0], j.dimensions), np.float32)
+        mirror[: len(vecs_host)] = vecs_host
+        state["_vecs_host"] = mirror
+    if j.rescore:
+        state["rescore_vectors"] = np.asarray(j.rescore_vectors)
+        state["rescore_aux"] = np.asarray(j.rescore_aux)
+    return state
+
+
+def jax_graph_state(g, vecs_host=None) -> dict:
+    """The attributes of a JAX GraphDeviceIndex that the port's
+    ``GraphDeviceIndex.load_state`` takes, as numpy (``vecs_host`` as in
+    ``jax_flat_state``)."""
+    return {
+        "store": jax_flat_state(g.store, vecs_host),
+        "adjacency": np.asarray(g.adjacency),
+        "_entries": list(g._entries),
+        "_entries_seen": g._entries_seen,
+        "_graph_nodes": g._graph_nodes,
+        "_graph_slots": list(g._graph_slots),
+        "_members": g._members.copy(),
+        "_delta_slots": list(g._delta_slots),
+        "_rescore_host": g._rescore_host,
+        "_refine_cursor": g._refine_cursor,
+        "_last_refined_nodes": g._last_refined_nodes,
+        "_rng": g._rng.bit_generator.state,
     }

@@ -206,6 +206,18 @@ def ids_postprocess(
     ]
 
 
+def dist_results(d: np.ndarray, i: np.ndarray, epochs_host: np.ndarray) -> list[SearchResult]:
+    """Results of the device's distances d [b, k] of slots i [b, k], in the
+    device's order (a -1 slot or a distance that is not finite is empty),
+    with epochs from the host mirror (the JAX package's "xla" kind)."""
+    e = epochs_host[np.maximum(i, 0)]
+    ok = np.isfinite(d) & (i >= 0)
+    return [
+        SearchResult(slots=i[r][ok[r]].astype(np.int64), epochs=e[r][ok[r]], distances=d[r][ok[r]])
+        for r in range(d.shape[0])
+    ]
+
+
 def normalize_rows(x: np.ndarray) -> np.ndarray:
     """Unit rows (cosine storage and queries)."""
     return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-30)
@@ -993,15 +1005,9 @@ class FlatDeviceIndex:
     def _postprocess(self, pending: PendingSearch, host: np.ndarray) -> list[SearchResult]:
         b_real = pending.b_real
         if pending.is_dist:
-            # the device's distances, in the device's order (JAX "xla" kind)
-            d = host[:b_real, : pending.k]
-            i = pull_packed(pending.rows)[:b_real, : pending.k]
-            e = self._epochs_host[np.maximum(i, 0)]
-            ok = np.isfinite(d) & (i >= 0)
-            return [
-                SearchResult(slots=i[r][ok[r]].astype(np.int64), epochs=e[r][ok[r]], distances=d[r][ok[r]])
-                for r in range(b_real)
-            ]
+            return dist_results(
+                host[:b_real, : pending.k], pull_packed(pending.rows)[:b_real, : pending.k], self._epochs_host
+            )
         return ids_postprocess(
             self._vecs_host,
             self._epochs_host,

@@ -28,6 +28,9 @@ in bounded chunks.
 Results leave the device as [B, k] int32 engine slots only; exact f32
 distances come from the slot-indexed host mirror and epochs from the host
 epoch mirror (the reference resolves ids host-side, usearch.rs:1067-1154).
+One exception, as in the JAX engine: an I8 index with ``rescoring: false``
+and no main region yet answers with its delta's storage-precision
+distances, in the delta's order.
 
 A search may carry a slot filter (``allow_mask``: a bool mask over engine
 slots, or an ``AllowMaskHandle`` that keeps the filter on the device across
@@ -61,6 +64,7 @@ from vector_store_tpu_torch.engine.flat import (
     FlatDeviceIndex,
     PendingSearch,
     SearchResult,
+    dist_results,
     ids_postprocess,
     normalize_rows,
     pull_packed,
@@ -1030,6 +1034,16 @@ class IvfDeviceIndex:
             queries = normalize_rows(queries)
         k_fetch = min(k * self.oversample, max(self.size, k))
         main_b, delta_allow = self._allow_inputs(allow_mask)
+        if self.main_vecs is None and self._delta.lossy and not self.rescoring:
+            # delta-only I8 without rescoring: the delta's storage-precision
+            # distances, in its order, are the answer (the JAX engine
+            # delegates to its delta and re-ranks only with rescoring on)
+            delta = self._delta.search_begin(queries, k_fetch, allow_mask=delta_allow, raw=True)
+            pos = delta.rows
+            slots = torch.where(pos >= 0, self._delta_pos2slot[torch.clamp(pos, min=0).long()], -1)
+            return PendingSearch(
+                packed=delta.packed, rows=slots, b_real=queries.shape[0], k=k, is_dist=True
+            )
         ids = self._candidates(
             queries, k_fetch, self._serving_s(queries.shape[0]), main_b, delta_allow
         )
@@ -1076,6 +1090,8 @@ class IvfDeviceIndex:
 
     def _postprocess(self, pending: PendingSearch, host: np.ndarray) -> list[SearchResult]:
         b_real = pending.b_real
+        if pending.is_dist:  # the delta's distances (delta-only I8, rescoring off)
+            return dist_results(host[:b_real], pull_packed(pending.rows)[:b_real], self._epochs_host)
         host = host[:b_real]
         dropped = host[:, -1]
         results = ids_postprocess(

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import collections
 
-import numpy as np
 import torch
 
 from vector_store_tpu_torch.core.types import Quantization, SpaceType
@@ -199,16 +198,15 @@ def paux_coeffs(
     return torch.full((n,), -1.0, **kw), torch.zeros((n,), **kw)
 
 
-def rank_to_distance(
-    space: SpaceType, rank: np.ndarray, q2: np.ndarray | None
-) -> np.ndarray:
-    """Kernel rank values -> true distances (host-side, winners only);
-    q2 = per-query |q|^2 for euclidean."""
+def rank_to_distance(space: SpaceType, rank, q2):
+    """Kernel rank values [B, k] -> true distances; q2 = per-query |q|^2
+    for euclidean. Takes numpy arrays or tensors (the graph engine's bulk
+    build converts on the device)."""
     if space is SpaceType.EUCLIDEAN:
-        return np.maximum(rank + q2[:, None], 0.0)
+        return (rank + q2[:, None]).clip(0.0, None)
     d = 1.0 + rank
     if space is SpaceType.COSINE:
-        return np.clip(d, 0.0, 2.0)
+        return d.clip(0.0, 2.0)
     return d
 
 

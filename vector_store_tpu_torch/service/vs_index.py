@@ -29,11 +29,16 @@ per kernel launch, so the actor's core is a micro-batching loop:
 Engine choice, as in the JAX package: global F32/F16/BF16/I8 indexes over
 euclidean/cosine/dot get the IVF engine ("auto" or "ivf") or the flat
 engine ("flat"); every B1 or Hamming index gets the flat engine under
-"auto" and "ivf", and a local (per-partition) index of any storage
-whatever the kind says (its partition directory serves a query naming its
-partition). An engine kind not ported yet ("graph" or a sharded one on a
+"auto" and "ivf"; "graph" gives a global index of any storage the graph
+engine; and a local (per-partition) index of any storage gets the flat
+engine whatever the kind says (its partition directory serves a query
+naming its partition). An engine kind not ported yet (a sharded one on a
 global index, the simulator, opensearch) raises NotImplementedError naming
 its ROADMAP.md entry; no other engine stands in.
+
+The graph engine has no sliced maintenance API (``maintain_pending``): its
+delta merges and refinement slices run as the JAX actor runs them, one
+exclusive ``maintain(MERGE_BATCH)`` whenever the pipeline is idle.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from vector_store_tpu_torch.engine.flat import (
     FlatDeviceIndex,
     SearchResult,
 )
+from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
 from vector_store_tpu_torch.engine.ivf import AllowMaskHandle, IvfDeviceIndex, ivf_supports
 
 logger = logging.getLogger(__name__)
@@ -109,7 +115,7 @@ class DimensionMismatch(ValueError):
 
 def make_engine(
     metadata: IndexMetadata, engine_kind: str, device: torch.device
-) -> IvfDeviceIndex | FlatDeviceIndex:
+) -> IvfDeviceIndex | FlatDeviceIndex | GraphDeviceIndex:
     """The device engine for one index, or NotImplementedError for what the
     port does not serve yet."""
     vs = metadata.vs_options
@@ -122,12 +128,25 @@ def make_engine(
         # B1 storage and Hamming distance: the exact flat engine (its
         # Hamming scan and bf16 rescore tier), as in the JAX package
         engine_kind = "flat"
-    if engine_kind not in ("auto", "ivf", "flat"):
+    if engine_kind not in ("auto", "ivf", "flat", "graph"):
         raise NotImplementedError(
             f"engine {engine_kind!r} is not ported yet (ROADMAP.md, port queue: "
-            "graph engine, sharded engines, simulator/opensearch)"
+            "sharded engines, simulator/opensearch)"
         )
     rescoring = vs.rescoring is not False
+    oversample = None if vs.oversampling is None else math.ceil(vs.oversampling)
+    if engine_kind == "graph":
+        return GraphDeviceIndex(
+            int(vs.dimensions),
+            space_type=vs.space_type,
+            quantization=vs.quantization,
+            connectivity=int(vs.connectivity),
+            expansion_add=int(vs.expansion_add),
+            expansion_search=int(vs.expansion_search),
+            device=device,
+            oversample=oversample,
+            rescoring=rescoring,
+        )
     if engine_kind == "flat":
         return FlatDeviceIndex(
             int(vs.dimensions),
@@ -135,7 +154,7 @@ def make_engine(
             quantization=vs.quantization,
             device=device,
             reserve_increment=LOCAL_RESERVE_INCREMENT if is_local else GLOBAL_RESERVE_INCREMENT,
-            **({} if vs.oversampling is None else {"oversample": math.ceil(vs.oversampling)}),
+            **({} if oversample is None else {"oversample": oversample}),
             rescoring=rescoring,
         )
     # expansion_search plays the nprobe role (reference ef_search 64)
@@ -145,7 +164,7 @@ def make_engine(
         quantization=vs.quantization,
         device=device,
         nprobe=max(8, int(vs.expansion_search) // 2),
-        oversample=None if vs.oversampling is None else math.ceil(vs.oversampling),
+        oversample=oversample,
         rescoring=rescoring,
     )
 
@@ -312,6 +331,11 @@ class VsIndexActor:
         loop = asyncio.get_running_loop()
         inflight: set[asyncio.Future] = set()
         has_pending_api = hasattr(self.engine, "maintain_pending")
+        # the graph engine: maintain() without the sliced API. Its slices run
+        # exclusively, one whenever the pipeline is idle, until one finds no
+        # work; a modify batch makes the next one due
+        whole_maintain = hasattr(self.engine, "maintain") and not has_pending_api
+        whole_due = whole_maintain
         maintain_recheck = 0.0  # throttle for the idle maintain_pending scan
         exclusive_after = 0.0  # grace window between exclusive slices
 
@@ -431,6 +455,7 @@ class VsIndexActor:
                     # a poisoned batch must not kill the actor loop
                     logger.exception("dropping modify batch of %d ops after failure", len(ops))
                 maintain_recheck = 0.0  # the batch may have made a rebuild due
+                whole_due = whole_maintain
                 continue
 
             # 3) exclusive maintenance (swap / re-entry slices)
@@ -441,6 +466,17 @@ class VsIndexActor:
                     logger.exception("exclusive maintenance slice failed")
                 exclusive_after = loop.time() + 0.25
                 maintain_recheck = 0.0
+                continue
+            if whole_due:
+                # the JAX actor stamps its recheck throttle 0.25 s ahead after
+                # such a slice; the throttle gates the sliced API only, so
+                # the next slice follows as soon as the pipeline is idle
+                # again (queued searches dispatch first, in step 1)
+                try:
+                    whole_due = await loop.run_in_executor(None, self.engine.maintain, MERGE_BATCH)
+                except Exception:
+                    logger.exception("exclusive maintenance slice failed")
+                    whole_due = False
                 continue
 
             # idle: wait for work (clear-then-recheck against lost wakeups)
