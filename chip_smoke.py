@@ -112,6 +112,20 @@ failure:
    in the delta, with the merges held back; each stored or merged row
    found first at distance 0.0 exactly, at least GRAPH_FOUND_MIN of them)
    and a delete; kernel 1's launches by purpose (build, merge, search).
+12. scaled service: phase 5's index (the same rows and requests) served by
+   run.serve_scaled: this process owns the card, the engines and the
+   ingestion, and W = min(4, cores - 2) spawned frontend processes serve
+   HTTP over the owner IPC. Each frontend's start-up (until it listens)
+   and RSS; the in-process ceiling (actor.ann_many, 4 tasks x 1024
+   queries, ~5 s); HTTP load from 2 spawned client processes of the
+   port's client.py at 64 and then 256 requests in flight (2 s warm-up,
+   10 s measured): QPS, p50, p99, the CPU seconds of the owner, the
+   frontends and the clients, the owner loop's lag and its threads' host
+   time, beside phase 5's QPS; recall@10 (>= 0.90), 16 self-queries and a
+   CDC insert found first at distance 0 through the frontends, a 404 and a
+   400 through the IPC; the fused and grouped scans' launches in the
+   owner during the HTTP requests (> 0); and nvidia-smi listing one
+   compute process, holding at least the owner's reserved memory.
    The smoke's total wall time is printed last of all phases.
 
 Phase 3 also holds both scans under a slot filter against their plain
@@ -120,7 +134,8 @@ allowed; a lane group, and a cluster, with no allowed row), F32 and BF16,
 each timed beside its unmasked reading.
 
 The last three lines of standard output are: one JSON object describing
-the kernels, the nvidia-smi name/power-limit line, and
+the kernels (the F32 fused and grouped scans' launches are phase 5's and
+phase 12's together), the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -169,6 +184,12 @@ GRAPH_SELF, GRAPH_CDC = 256, 256  # self-queries; CDC inserts, checked in the de
 # 1024 stored rows and 0.875 of 256 rows merged in one slice
 # (vector_store_tpu_torch/bench/graph_reach.py on an H100; PERF.md section 6)
 GRAPH_FOUND_MIN = 0.75
+# the scaled service (phase 12): HTTP clients in processes of their own, the
+# requests they keep in flight in total, and each load's windows
+SCALED_CLIENTS = 2
+SCALED_IN_FLIGHT = (64, 256)
+SCALED_WARM_S, SCALED_RUN_S = 2.0, 10.0
+CEILING_BATCH, CEILING_TASKS, CEILING_S = 1024, 4, 5.0  # the in-process ceiling (actor.ann_many)
 # each kernel's time under the port's first scan core, before its redesign
 # for Hopper: ms at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W,
 # copied from PERF.md section 5 (that core's last full smoke run), not
@@ -916,7 +937,7 @@ async def service_phase(device, card: str, storage: str = "F32") -> dict:
                 f"at {IN_FLIGHT} in flight (client in the same process)",
                 flush=True,
             )
-            return launches
+            return launches, N_REQUESTS / wall
     finally:
         await service.stop()
 
@@ -1799,6 +1820,351 @@ async def graph_phase(device, card: str) -> dict:
         await service.stop()
 
 
+def cpu_seconds(pid: int) -> float:
+    """utime + stime of one process (/proc/<pid>/stat), seconds."""
+    with open(f"/proc/{pid}/stat", "rb") as f:
+        fields = f.read().split(b") ", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def proc_rss(pid: int) -> str:
+    """A process's resident memory (VmRSS), split into private (RssAnon)
+    and file-backed (RssFile: shared libraries, in the page cache once for
+    all) where the kernel reports the split."""
+    with open(f"/proc/{pid}/status") as f:
+        kb = {line.split(":")[0]: int(line.split()[1]) for line in f if line.startswith(("VmRSS", "Rss"))}
+    if "RssAnon" not in kb:
+        return f"{kb['VmRSS'] / 1024:.0f} MB resident"
+    return f"{kb['RssAnon'] / 1024:.0f} MB private + {kb['RssFile'] / 1024:.0f} MB file-backed"
+
+
+def proc_maps(pid: int, name: str) -> bool:
+    """Does the process map a library whose path holds ``name``?"""
+    with open(f"/proc/{pid}/maps") as f:
+        return any(name in line for line in f)
+
+
+def listening(pids: list[int], port: int) -> set[int]:
+    """The processes among ``pids`` that hold a socket listening on TCP
+    ``port`` (/proc/net/tcp's LISTEN inodes against each one's fds)."""
+    inodes = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        with open(table) as f:
+            for line in list(f)[1:]:
+                fields = line.split()
+                if fields[3] == "0A" and int(fields[1].rsplit(":", 1)[1], 16) == port:
+                    inodes.add(f"socket:[{fields[9]}]")
+    out = set()
+    for pid in pids:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                if os.readlink(f"/proc/{pid}/fd/{fd}") in inodes:
+                    out.add(pid)
+                    break
+            except OSError:
+                continue
+    return out
+
+
+def frontends_up(pids: list[int], port: int, t0: float, timeout: float = 120.0) -> dict[int, float]:
+    """Seconds from ``t0`` until each process listens on ``port``."""
+    up: dict[int, float] = {}
+    deadline = time.perf_counter() + timeout
+    while len(up) < len(pids) and time.perf_counter() < deadline:
+        for pid in listening([p for p in pids if p not in up], port):
+            up[pid] = time.perf_counter() - t0
+        time.sleep(0.01)
+    return up
+
+
+class LoopLag:
+    """How late a 10 ms sleep of the owner's event loop wakes: the loop's
+    saturation during a load window."""
+
+    def __init__(self) -> None:
+        self.lags: list[float] = []
+        self.task = asyncio.get_running_loop().create_task(self._run())
+
+    async def _run(self) -> None:
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(0.01)
+            self.lags.append(time.perf_counter() - t - 0.01)
+
+    def stop(self) -> str:
+        self.task.cancel()
+        return (f"loop lag p50 {1e3 * statistics.median(self.lags):.1f} ms, max {1e3 * max(self.lags):.1f} ms"
+                if self.lags else "loop lag not sampled")
+
+
+def owner_host_ms() -> str:
+    """The actor's and the IVF engine's host time in worker threads since
+    the last hotpath reset (utils/hotpath.py)."""
+    from vector_store_tpu_torch.utils import hotpath
+
+    names = ("vs_index.VsIndexActor._begin_window", "vs_index.VsIndexActor._collect_batches",
+             "ivf.IvfDeviceIndex.search_begin", "ivf.IvfDeviceIndex.search_collect")
+    st = hotpath.stats()
+    return ", ".join(f"{name.split('.')[-1]} {st[name]['calls']} calls {st[name]['total_ms']:.0f} ms"
+                     for name in names if name in st)
+
+
+def scaled_client_main(base: str, queries: np.ndarray, in_flight: int, ready, go, out) -> None:
+    """One HTTP load process of phase 12: ``in_flight`` closed loops of ANN
+    requests through the port's REST client (client.py). It reports ready,
+    starts on ``go``, and after SCALED_WARM_S reports the latencies of the
+    requests it sent and finished within the next SCALED_RUN_S."""
+    asyncio.run(_client_load(base, queries, in_flight, ready, go, out))
+
+
+async def _client_load(base, queries, in_flight, ready, go, out) -> None:
+    import aiohttp
+
+    from vector_store_tpu_torch.client import ApiError, VectorStoreClient
+
+    vectors = [q.tolist() for q in queries]
+    lat: list[float] = []
+    errors = 0
+    connector = aiohttp.TCPConnector(limit=0)  # one connection a loop
+    timeout = aiohttp.ClientTimeout(total=None, sock_read=120)
+    async with aiohttp.ClientSession(connector=connector, timeout=timeout) as session:
+        client = VectorStoreClient(base, session=session)
+        ready.put(os.getpid())
+        await asyncio.to_thread(go.wait, 300)
+        t_measure = time.perf_counter() + SCALED_WARM_S
+        t_end = t_measure + SCALED_RUN_S
+
+        async def closed_loop(i: int) -> None:
+            nonlocal errors
+            while (t := time.perf_counter()) < t_end:
+                try:
+                    await client.ann("ks", "idx", vectors[i % len(vectors)], K)
+                except ApiError:
+                    errors += 1
+                    continue
+                done = time.perf_counter()
+                if t >= t_measure and done <= t_end:
+                    lat.append(done - t)
+                i += in_flight
+
+        await asyncio.gather(*(closed_loop(i) for i in range(in_flight)))
+    out.put({"pid": os.getpid(), "lat": lat, "errors": errors})
+
+
+async def scaled_phase(device, card: str, phase5_qps: float) -> dict:
+    """Phase 12: phase 5's index (global F32 COSINE, SERVICE_ROWS x 128)
+    served by run.serve_scaled: the owner keeps the card and the engines,
+    W frontend processes do the HTTP work; returns the scans' launches
+    during the HTTP requests (counted in the owner)."""
+    import multiprocessing
+
+    import aiohttp
+
+    from vector_store_tpu_torch.core.types import Quantization
+    from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+    from vector_store_tpu_torch.run import gpus_hidden, serve_scaled
+    from vector_store_tpu_torch.service.config import Config
+    from vector_store_tpu_torch.utils import hotpath
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)  # phase 5's rows and requests
+    n = SERVICE_ROWS
+    data = clustered_rows(rng, n)
+    pick = rng.integers(0, n, size=N_REQUESTS)
+    queries = data[pick] + rng.standard_normal((N_REQUESTS, DIMS), dtype=np.float32) * np.float32(
+        0.1 / np.sqrt(DIMS)
+    )
+    gt = exact_top_k(torch.from_numpy(data).to(device), torch.from_numpy(queries).to(device), K)
+
+    db = FakeDb()
+    db.add_table(FakeTable("ks", "tbl", ("pk",)))
+    metadata = make_vs_metadata(dimensions=DIMS, quantization=Quantization.F32)  # COSINE, global
+    port = free_port()
+    workers = max(1, min(4, (os.cpu_count() or 1) - 2))
+    owner = os.getpid()
+    print(f"[scaled] {workers} frontend workers on {os.cpu_count()} cores; owner pid {owner}", flush=True)
+
+    t0 = time.perf_counter()
+    service = await serve_scaled(
+        db, Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.1), workers=workers, device=device
+    )
+    frontends = [p.pid for p in service.frontends]
+    # the frontends' start-up, timed while the owner is idle (an ingesting
+    # owner holds the interpreter lock for long stretches); then the index
+    up_s = await asyncio.to_thread(frontends_up, frontends, port, t0)
+    check(len(up_s) == workers, f"frontends {sorted(set(frontends) - set(up_s))} never listened")
+    t0 = time.perf_counter()
+    db.add_index(FakeIndex(metadata=metadata, scan=lambda: (vector_row((i,), data[i], 100) for i in range(n))))
+    ctx = multiprocessing.get_context("spawn")
+    try:
+        async with aiohttp.ClientSession() as http:
+            base = f"http://127.0.0.1:{port}"
+            client = Http(http, f"{base}/api/v1/indexes/ks/idx")
+            ann, wait_for, counted = client.ann, client.wait_for, client.counted
+
+            async def frontend_up() -> bool:
+                try:
+                    async with http.get(f"{base}/api/v1/status") as resp:
+                        return resp.status == 200
+                except aiohttp.ClientError:
+                    return False
+
+            await wait_for(frontend_up, "a frontend to answer", timeout=120)
+            await wait_for(lambda: counted(n), f"{n} rows")
+            ingest_s = time.perf_counter() - t0
+            actor = service.indexes.get_vs(metadata.key).actor
+            engine = actor.engine
+
+            async def built() -> bool:
+                return engine.nlist > 0 and engine.maintain_pending() is None
+
+            await wait_for(built, "the IVF build to swap in and settle")
+            settle_s = time.perf_counter() - t0 - ingest_s
+            print(f"[scaled] {n} rows ingested (through the owner, polled through the frontends) in {ingest_s:.1f} s; "
+                  f"IVF nlist={engine.nlist} main={engine._main_rows} delta={engine._delta.size}; settled "
+                  f"{settle_s:.1f} s later", flush=True)
+            print("[scaled] frontends (listening s after serve_scaled was called; resident memory now): " + "; ".join(
+                f"pid {pid} {up_s[pid]:.2f} s, {proc_rss(pid)}, torch "
+                f"{'loaded' if proc_maps(pid, 'libtorch') else 'not loaded'}" for pid in frontends)
+                + f"; owner {proc_rss(owner)}", flush=True)
+
+            # -- the in-process ceiling: actor.ann_many, no IPC, no HTTP ----
+            lat: list[float] = []
+            served = 0
+
+            async def ceiling_task(w: int, stop_at: float) -> None:
+                nonlocal served
+                lo = (w * CEILING_BATCH) % N_REQUESTS
+                while time.perf_counter() < stop_at:
+                    t = time.perf_counter()
+                    res = await actor.ann_many(queries[lo : lo + CEILING_BATCH], K)
+                    lat.append(time.perf_counter() - t)
+                    served += len(res)
+
+            # warm-up at the same concurrency (the batch shapes of the window)
+            await asyncio.gather(*(ceiling_task(w, time.perf_counter() + 1.0) for w in range(CEILING_TASKS)))
+            lat.clear()
+            served = 0
+            hotpath.enable()
+            hotpath.reset()
+            lag = LoopLag()
+            launches0 = fs.fused_scan.launches
+            t1 = time.perf_counter()
+            stop_at = t1 + CEILING_S
+            await asyncio.gather(*(ceiling_task(w, stop_at) for w in range(CEILING_TASKS)))
+            ceiling_qps = served / (time.perf_counter() - t1)
+            batches = fs.fused_scan.launches - launches0
+            print(f"[scaled] in-process ceiling on {card}: actor.ann_many, {CEILING_TASKS} tasks x {CEILING_BATCH} "
+                  f"queries: {ceiling_qps:.0f} QPS, p50 {1e3 * statistics.median(lat):.1f} ms a call, "
+                  f"{served / max(batches, 1):.0f} requests a device batch; {lag.stop()}; owner threads: "
+                  f"{owner_host_ms()}", flush=True)
+
+            # -- the main path, counted: HTTP through the frontends ---------
+            fs.fused_scan.launches = 0
+            fs.fused_scan.launches_by.clear()
+            ivf.grouped_scan.launches = 0
+            ivf.grouped_scan.launches_by.clear()
+            readings = {}
+            apps = None
+            for in_flight in SCALED_IN_FLIGHT:
+                ready, go, out = ctx.Queue(), ctx.Event(), ctx.Queue()
+                clients = [ctx.Process(target=scaled_client_main, daemon=True, args=(
+                    base, queries[c::SCALED_CLIENTS], in_flight // SCALED_CLIENTS, ready, go, out))
+                    for c in range(SCALED_CLIENTS)]
+                with gpus_hidden():  # the clients see no GPU either
+                    for p in clients:
+                        p.start()
+                pids = [await asyncio.to_thread(ready.get, True, 300) for _ in clients]
+                go.set()
+                await asyncio.sleep(SCALED_WARM_S)
+                cpu0 = {"owner": cpu_seconds(owner), "frontends": sum(map(cpu_seconds, frontends)),
+                        "clients": sum(map(cpu_seconds, pids))}
+                hotpath.reset()
+                lag = LoopLag()
+                launches0 = fs.fused_scan.launches
+                if apps is None:  # every process of the phase is up: who holds a CUDA context?
+                    apps = subprocess.run(
+                        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                        capture_output=True, text=True, check=True,
+                    ).stdout.strip().splitlines()
+                    reserved_mib = torch.cuda.memory_reserved(device) / 2**20
+                    cuda_mapped = [pid for pid in frontends + pids if proc_maps(pid, "libcuda")]
+                await asyncio.sleep(SCALED_RUN_S)
+                cpu1 = {"owner": cpu_seconds(owner), "frontends": sum(map(cpu_seconds, frontends)),
+                        "clients": sum(map(cpu_seconds, pids))}
+                batches = fs.fused_scan.launches - launches0
+                window = f"{lag.stop()}; owner threads: {owner_host_ms()}"
+                results = [await asyncio.to_thread(out.get, True, 120) for _ in clients]
+                for p in clients:
+                    p.join(timeout=30)
+                    check(not p.is_alive() and p.exitcode == 0, f"HTTP client {p.pid} exited {p.exitcode}")
+                lat = [x for r in results for x in r["lat"]]
+                errors = sum(r["errors"] for r in results)
+                check(errors == 0 and len(lat) > 0, f"{errors} failed requests, {len(lat)} answered at {in_flight} in flight")
+                cpu = {k: cpu1[k] - cpu0[k] for k in cpu0}
+                readings[in_flight] = len(lat) / SCALED_RUN_S
+                print(f"[scaled] HTTP on {card}, {SCALED_CLIENTS} client processes (client.py), {in_flight} in flight: "
+                      f"{len(lat) / SCALED_RUN_S:.0f} QPS, p50 {1e3 * np.percentile(lat, 50):.1f} ms, "
+                      f"p99 {1e3 * np.percentile(lat, 99):.1f} ms over {SCALED_RUN_S:.0f} s; CPU seconds in the window: "
+                      f"owner {cpu['owner']:.2f}, {workers} frontends {cpu['frontends']:.2f}, "
+                      f"clients {cpu['clients']:.2f}; ~{len(lat) / max(batches, 1):.0f} requests a device batch; "
+                      f"{window}", flush=True)
+            print(f"[scaled] QPS on {card}: in-process ceiling {ceiling_qps:.0f}; HTTP through {workers} frontends "
+                  + ", ".join(f"{v:.0f} at {k} in flight" for k, v in readings.items())
+                  + f"; phase 5 (one process, {IN_FLIGHT} in flight) {phase5_qps:.0f}", flush=True)
+
+            # -- correctness through the frontends --------------------------
+            sem = asyncio.Semaphore(IN_FLIGHT)
+
+            async def one(q):
+                async with sem:
+                    return (await ann(q))["primary_keys"]["pk"]
+
+            got = await asyncio.gather(*(one(q) for q in queries))
+            recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt)]))
+            print(f"[scaled] recall@{K} {recall:.4f} over {N_REQUESTS} requests through the frontends", flush=True)
+            check(recall >= RECALL_MIN, f"scaled recall@{K} {recall:.4f} < {RECALL_MIN}")
+            for i in rng.choice(n, size=16, replace=False):
+                res = await ann(data[i], 3)
+                check(res["primary_keys"]["pk"][0] == int(i) and abs(res["distances"][0]) <= 1e-6,
+                      f"scaled self-query of row {i} returned {res}")
+            async with http.post(f"{base}/api/v1/indexes/ks/nope/ann", json={"vector": [0.0] * DIMS}) as resp:
+                check(resp.status == 404, f"an unknown index answered {resp.status}")
+            async with http.post(f"{client.base}/ann", json={"vector": [0.0] * 3, "limit": K}) as resp:
+                check(resp.status == 400, f"a wrong dimension answered {resp.status}")
+            new = clustered_rows(rng, 1)[0]
+            await db.db_indexes[metadata.key].push_cdc(vector_row((n,), new, 200))
+            await wait_for(lambda: counted(n + 1), "the CDC row", timeout=60)
+            res = await ann(new, 3)
+            check(res["primary_keys"]["pk"][0] == n and abs(res["distances"][0]) <= 1e-6,
+                  f"scaled CDC row query returned {res}")
+            print("[scaled] 16 self-queries and the CDC row first at distance 0 through the frontends; "
+                  "404 and 400 through the IPC", flush=True)
+            launches = {"fused_scan": fs.fused_scan.launches_by["float32"],
+                        "grouped_scan": sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items() if dt == "float32")}
+            print(f"[scaled] launches during the HTTP requests (float32 rows, counted in the owner): {launches}", flush=True)
+            check(all(v > 0 for v in launches.values()), f"a kernel of the scaled path never launched: {launches}")
+
+            # nvidia-smi names processes by the PIDs of another namespace
+            # here: the one process it lists must hold at least the owner's
+            # reserved memory
+            listed = [line.split(",") for line in apps]
+            print(f"[scaled] nvidia-smi compute apps during the load: {apps}; owner pid {owner} "
+                  f"(torch reserved {reserved_mib:.0f} MiB), frontends {frontends}", flush=True)
+            check(len(listed) == 1, f"{len(listed)} compute processes on the card, not the owner alone")
+            check(int(listed[0][0]) not in frontends, "a frontend process holds a CUDA context")
+            check(float(listed[0][1].split()[0]) >= reserved_mib, "the listed process holds less than the owner's memory")
+            print(f"[scaled] frontend and client processes that map libcuda (loaded by torch's import, "
+                  f"no context without a visible device): {cuda_mapped}", flush=True)
+            print(f"[scaled] phase wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+            return launches
+    finally:
+        hotpath.disable()
+        await service.stop()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
@@ -1825,12 +2191,12 @@ def main() -> None:
                       if e["name"] in PREV_MS), flush=True)
     g_launches = stage_phase(device)
     host_line("the F32 service")
-    launches = asyncio.run(service_phase(device, card))
+    launches, phase5_qps = asyncio.run(service_phase(device, card))
     launches["grouped_scan_g"] = g_launches
     gc.collect()
     torch.cuda.empty_cache()
     host_line("the BF16 service")
-    launches["fused_scan_bf16"] = asyncio.run(service_phase(device, card, "BF16"))["fused_scan"]
+    launches["fused_scan_bf16"] = asyncio.run(service_phase(device, card, "BF16"))[0]["fused_scan"]
     gc.collect()  # each index leaves the card before the next one arrives
     torch.cuda.empty_cache()
     host_line("the local service")
@@ -1856,6 +2222,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     host_line("the graph service")
     asyncio.run(graph_phase(device, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the scaled service")
+    scaled = asyncio.run(scaled_phase(device, card, phase5_qps))
+    print(f"[scaled] launches of the F32 scans: phase 5 {({k: launches[k] for k in scaled})}, phase 12 {scaled}; "
+          "the kernels line gives their sums", flush=True)
+    for name, count in scaled.items():
+        launches[name] += count
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:
         entry["launches"] = launches[entry["name"]]

@@ -3,12 +3,16 @@ and ops, the stage-ablation script and the chip smoke script load in a
 fresh interpreter without jax and without any module of the JAX package.
 (A subprocess, because this test process imported jax in conftest.)
 
+The modules a frontend process of ``serve_scaled`` imports load no torch
+either, and importing the engines turns TF32 off for float32 products.
+
 The device-free modules the port copied from the JAX package must not
 drift from their originals: each copy equals its original with
 ``vector_store_tpu.`` read as ``vector_store_tpu_torch.``, apart from the
 few lines named in ALLOWED below.
 """
 
+import ast
 import difflib
 import os
 import subprocess
@@ -61,13 +65,22 @@ COPIED = (
     "utils/hotpath.py",
     "engine/rescore.py",
     "service/monitor_indexes.py",
+    "engine/simulator.py",
+    "engine/opensearch.py",
+    "http/frontend.py",
+    "client.py",
 )
 
 # copy -> the only lines (on either side) where a copy may differ from its
 # rewritten original: the package constants live in the port's own
-# __init__.py, and the native loader builds into the port's _build/
-# directory, never into the JAX package's native/
+# __init__.py, the native loader builds into the port's _build/ directory,
+# never into the JAX package's native/, and the OpenSearch engine imports
+# requests where it opens a session, not when the module is imported
 ALLOWED = {
+    "engine/opensearch.py": {
+        "import requests",
+        "import requests  # where a session opens: importing the port needs no requests",
+    },
     "http/openapi.py": {"import vector_store_tpu", "import vector_store_tpu_torch"},
     "native/__init__.py": {
         "import vector_store_tpu",
@@ -90,20 +103,50 @@ ALLOWED = {
         "chip_smoke",
         "vector_store_tpu_torch.bench.ivf_stage",
         "vector_store_tpu_torch.bench.scan_ablation",
+        "vector_store_tpu_torch.engine.simulator, vector_store_tpu_torch.engine.opensearch, "
+        "vector_store_tpu_torch.service.ipc, vector_store_tpu_torch.http.frontend",
     ],
-    ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation", "scan-ablation"],
+    ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation", "scan-ablation", "scaled-serving"],
 )
 def test_no_jax_in_sys_modules(modules):
+    # requests too: the OpenSearch engine imports it only to open a session
+    assert _loaded(modules, FORBIDDEN + ("requests",)) == []
+
+
+def _loaded(modules: str, roots: tuple) -> list[str]:
+    """The modules under ``roots`` that importing ``modules`` loads in a
+    fresh interpreter."""
     code = (
         f"import sys; import {modules}; "
-        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))"
+        f"print(sorted(m for m in sys.modules if m.split('.')[0] in {roots!r}))"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    return ast.literal_eval(out.stdout.strip())
+
+
+def test_frontend_process_loads_no_torch():
+    """What a frontend process of serve_scaled imports (the frontend, its
+    IPC client, the REST client) loads neither torch nor anything of the
+    JAX package: a frontend stays small and never reaches the GPU."""
+    modules = "vector_store_tpu_torch.http.frontend, vector_store_tpu_torch.service.ipc, vector_store_tpu_torch.client"
+    assert _loaded(modules, FORBIDDEN + ("requests", "torch")) == []
+
+
+def test_f32_products_never_take_tf32():
+    """Importing the engines turns TF32 off for float32 products even where
+    the process had turned it on: F32 storage ranks in full f32."""
+    code = (
+        "import torch; torch.backends.cuda.matmul.allow_tf32 = True; torch.backends.cudnn.allow_tf32 = True; "
+        "import vector_store_tpu_torch.engine; "
+        "print(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
 
 
 def test_copied_modules_are_listed():
@@ -122,7 +165,8 @@ def test_copied_modules_are_listed():
         "__init__.py", "run.py", "engine/__init__.py", "engine/flat.py", "engine/graph.py", "engine/ivf.py",
         "http/__init__.py", "http/routes.py", "ops/__init__.py", "ops/distance.py",
         "ops/ivf.py", "ops/partition_scan.py", "ops/quantize.py", "ops/topk.py",
-        "service/__init__.py", "service/engine.py", "service/memory.py", "service/vs_index.py",
+        "service/__init__.py", "service/engine.py", "service/ipc.py", "service/memory.py",
+        "service/vs_index.py",
     }
     assert twins - rewrites == set(COPIED)
 

@@ -10,14 +10,11 @@ sm_90a (csrc/). The JAX package stays the reference. This package imports
 nothing of it: the device-free modules (core, table, db, fts, native, the
 HTTP server) are copies kept beside their originals under the same
 relative paths, and it imports no JAX.
+
+Importing the package itself loads no torch: the HTTP frontend processes
+of ``run.serve_scaled`` import only device-free modules. The TF32 switches
+are set where the device code is imported (``ops/__init__.py``).
 """
-
-import torch
-
-# F32 storage promises full f32 distances (the JAX package ran F32 products
-# at Precision.HIGHEST), so no float32 product may take the TF32 path.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 

@@ -1,5 +1,13 @@
 """Route handlers (parity with reference httproutes.rs route table
-:172-185 and handlers)."""
+:172-185 and handlers).
+
+The answers that need the owner's state (index list and status, ANN,
+BM25, info) are computed by ``*_answer`` functions that return
+``(status, body)``: the routes here and the owner's IPC server
+(service/ipc.py, which serves the frontend processes of ``serve_scaled``)
+both answer through them, so a request gets the same answer either way.
+A body is the JSON data of a 200, the message of an error, or the reason
+object of a 503."""
 
 from __future__ import annotations
 
@@ -58,13 +66,23 @@ def _err(status: int, msg: str) -> web.Response:
     return web.Response(status=status, text=msg, content_type="application/json")
 
 
+def _answer(status: int, body) -> web.Response:
+    """The response of an ``*_answer`` function's (status, body)."""
+    if status == 200 or status == 503:
+        return _json(body, status=status)
+    return _err(status, body)
+
+
 # ---------------------------------------------------------------------------
 # GET /api/v1/indexes
 # ---------------------------------------------------------------------------
 
 
 async def get_indexes(request: web.Request) -> web.Response:
-    st = _state(request)
+    return _json(indexes_answer(_state(request)))
+
+
+def indexes_answer(st: AppState) -> list[dict]:
     out = []
     for key, entry in st.indexes.vs_entries.items():
         vs = entry.metadata.vs_options
@@ -95,7 +113,7 @@ async def get_indexes(request: web.Request) -> web.Response:
                 },
             }
         )
-    return _json(out)
+    return out
 
 
 def _similarity_name(space_type) -> str:
@@ -115,24 +133,27 @@ def _similarity_name(space_type) -> str:
 
 
 async def get_index_status(request: web.Request) -> web.Response:
-    st = _state(request)
-    keyspace = request.match_info["keyspace"]
-    index = request.match_info["index"]
+    return _answer(
+        *await index_status_answer(
+            _state(request), request.match_info["keyspace"], request.match_info["index"]
+        )
+    )
+
+
+async def index_status_answer(st: AppState, keyspace: str, index: str) -> tuple[int, object]:
     key = IndexKey(keyspace, index)
     entry = st.indexes.get_vs(key) or st.indexes.get_fts(key)
     if entry is None:
-        return _err(404, f"missing index: {keyspace}.{index}")
+        return 404, f"missing index: {keyspace}.{index}"
     try:
         count = await entry.actor.count()
     except Exception as e:
-        return _err(500, f"index.count request error: {e}")
-    return _json(
-        {
-            "status": index_status_http(entry.status),
-            "count": count,
-            "build_progress": entry.progress.percentage,
-        }
-    )
+        return 500, f"index.count request error: {e}"
+    return 200, {
+        "status": index_status_http(entry.status),
+        "count": count,
+        "build_progress": entry.progress.percentage,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -331,17 +352,26 @@ def restriction_columns(restrictions: list[Restriction]) -> tuple[list[str], lis
     return equality, range_
 
 
-def collect_primary_keys(
-    pk_columns: tuple[str, ...], keys: list
-) -> dict[str, list]:
-    """Columnar primary-key response (httproutes.rs:1237-1269)."""
-    out: dict[str, list] = {c: [] for c in pk_columns}
+def key_values(pk_columns: tuple[str, ...], keys: list) -> list[tuple]:
+    """Each primary key's values; ValueError for a key whose arity is not
+    the columns'."""
+    out = []
     for pk in keys:
         values = pk.values()
         if len(values) != len(pk_columns):
             raise ValueError(
                 f"primary key arity {len(values)} != columns {len(pk_columns)}"
             )
+        out.append(values)
+    return out
+
+
+def collect_primary_keys(
+    pk_columns: tuple[str, ...], keys: list
+) -> dict[str, list]:
+    """Columnar primary-key response (httproutes.rs:1237-1269)."""
+    out: dict[str, list] = {c: [] for c in pk_columns}
+    for values in key_values(pk_columns, keys):
         for c, v in zip(pk_columns, values):
             out[c].append(_to_json(v))
     return out
@@ -407,51 +437,75 @@ async def post_index_ann(request: web.Request) -> web.Response:
     except (ValueError, TypeError):
         return _err(400, "invalid 'limit'")
 
-    timer = st.metrics.latency.with_labels(keyspace, index_name).start_timer()
-    key = IndexKey(keyspace, index_name)
-
-    filter_data = body.get("filter")
+    status, answer = await ann_answer(st, keyspace, index_name, vector, limit, body.get("filter"))
+    if status != 200:
+        return _answer(status, answer)
+    pk_columns, result = answer
     try:
-        restrictions, allow_filtering = (
-            parse_filter(filter_data) if filter_data else ([], False)
-        )
+        primary_keys = collect_primary_keys(pk_columns, [pk for pk, _ in result])
     except ValueError as e:
-        timer.observe_duration()
-        return _err(400, str(e))
+        return _err(500, str(e))
+    distances = [d for _, d in result]
+    return _json(
+        {
+            "primary_keys": primary_keys,
+            "distances": [saturate_f32(d.value) for d in distances],
+            "similarity_scores": [saturate_f32(similarity_score(d)) for d in distances],
+        }
+    )
 
-    equality, range_ = restriction_columns(restrictions)
-    best = st.indexes.best_index(key, equality, range_)
+
+def unservable_answer(st: AppState, keyspace: str, index_name: str, best) -> tuple[int, object] | None:
+    """The answer for an index that cannot take an ANN query (missing,
+    local-only, not serving yet), or None."""
     if best.kind is BestIndexKind.NOT_FOUND:
-        timer.observe_duration()
-        return _err(404, f"missing index: {keyspace}.{index_name}")
+        return 404, f"missing index: {keyspace}.{index_name}"
     if best.kind is BestIndexKind.NO_GLOBAL_INDEX:
-        timer.observe_duration()
-        return _err(
-            400,
+        return 400, (
             f"Global ANN query is not supported when only a local "
-            f"vector index is available for {keyspace}.{index_name}",
+            f"vector index is available for {keyspace}.{index_name}"
         )
     if best.kind is BestIndexKind.NOT_SERVING:
-        timer.observe_duration()
         progress = best.progress.percentage if best.progress else 0.0
         if st.node_state.get_status() is NodeStatus.SERVING:
-            reason = {
+            return 503, {
                 "reason": "INDEX_BUILDING",
                 "message": (
                     f"Index {keyspace}.{index_name} is not available yet as it "
                     f"is still being constructed, progress: {progress:.3f}%"
                 ),
             }
-        else:
-            reason = {"reason": "NODE_BOOTSTRAPPING"}
-        return _json(reason, status=503)
+        return 503, {"reason": "NODE_BOOTSTRAPPING"}
+    return None
 
-    if best.needs_filtering > 0 and not allow_filtering:
+
+async def ann_answer(
+    st: AppState, keyspace: str, index_name: str, vector, limit: int, filter_data
+) -> tuple[int, object]:
+    """One ANN query of a validated vector and limit; a 200's body is
+    (primary key columns, [(PrimaryKey, Distance)])."""
+    timer = st.metrics.latency.with_labels(keyspace, index_name).start_timer()
+    try:
+        return await _ann(st, keyspace, index_name, vector, limit, filter_data)
+    finally:
         timer.observe_duration()
-        return _err(
-            400,
-            f"Index {keyspace}.{index_name} requires ALLOW FILTERING for this query",
+
+
+async def _ann(st, keyspace, index_name, vector, limit, filter_data) -> tuple[int, object]:
+    try:
+        restrictions, allow_filtering = (
+            parse_filter(filter_data) if filter_data else ([], False)
         )
+    except ValueError as e:
+        return 400, str(e)
+
+    equality, range_ = restriction_columns(restrictions)
+    best = st.indexes.best_index(IndexKey(keyspace, index_name), equality, range_)
+    unservable = unservable_answer(st, keyspace, index_name, best)
+    if unservable is not None:
+        return unservable
+    if best.needs_filtering > 0 and not allow_filtering:
+        return 400, f"Index {keyspace}.{index_name} requires ALLOW FILTERING for this query"
 
     # routing observability (reference's slow-test-hooks counter)
     st.internals.increment(
@@ -464,37 +518,18 @@ async def post_index_ann(request: web.Request) -> web.Response:
                 restrictions, getattr(entry, "table_columns", {})
             )
         except ValueError as e:
-            timer.observe_duration()
-            return _err(400, str(e))
+            return 400, str(e)
     try:
         if restrictions:
             result = await entry.actor.filtered_ann(vector, restrictions, limit)
         else:
             result = await entry.actor.ann(vector, limit)
     except DimensionMismatch as e:
-        timer.observe_duration()
-        return _err(400, str(e))
+        return 400, str(e)
     except Exception as e:
-        timer.observe_duration()
         logger.exception("post_index_ann failed")
-        return _err(500, f"index.ann request error: {e}")
-    timer.observe_duration()
-
-    keys = [pk for pk, _ in result]
-    distances = [d for _, d in result]
-    try:
-        primary_keys = collect_primary_keys(
-            entry.metadata.primary_key_columns, keys
-        )
-    except ValueError as e:
-        return _err(500, str(e))
-    return _json(
-        {
-            "primary_keys": primary_keys,
-            "distances": [saturate_f32(d.value) for d in distances],
-            "similarity_scores": [saturate_f32(similarity_score(d)) for d in distances],
-        }
-    )
+        return 500, f"index.ann request error: {e}"
+    return 200, (entry.metadata.primary_key_columns, result)
 
 
 # ---------------------------------------------------------------------------
@@ -522,39 +557,47 @@ async def post_index_bm25(request: web.Request) -> web.Response:
     except (ValueError, TypeError):
         return _err(400, "invalid 'limit'")
 
-    key = IndexKey(keyspace, index_name)
-    entry = st.indexes.get_fts(key)
-    if entry is None:
-        return _err(404, f"missing index: {keyspace}.{index_name}")
+    status, answer = await bm25_answer(st, keyspace, index_name, query, limit)
+    if status != 200:
+        return _answer(status, answer)
+    pk_columns, keys, scores = answer
+    try:
+        primary_keys = collect_primary_keys(pk_columns, keys)
+    except ValueError as e:
+        return _err(500, str(e))
+    return _json({"primary_keys": primary_keys, "scores": scores})
+
+
+async def bm25_answer(
+    st: AppState, keyspace: str, index_name: str, query: str, limit: int
+) -> tuple[int, object]:
+    """One BM25 query; a 200's body is (primary key columns, keys, scores)."""
     from vector_store_tpu_torch.service.node_state import IndexStatus
 
+    entry = st.indexes.get_fts(IndexKey(keyspace, index_name))
+    if entry is None:
+        return 404, f"missing index: {keyspace}.{index_name}"
     if entry.status is not IndexStatus.SERVING:
         progress = entry.progress.percentage
         if st.node_state.get_status() is NodeStatus.SERVING:
-            reason = {
+            return 503, {
                 "reason": "INDEX_BUILDING",
                 "message": (
                     f"Index {keyspace}.{index_name} is not available yet as it "
                     f"is still being constructed, progress: {progress:.3f}%"
                 ),
             }
-        else:
-            reason = {"reason": "NODE_BOOTSTRAPPING"}
-        return _json(reason, status=503)
+        return 503, {"reason": "NODE_BOOTSTRAPPING"}
 
     timer = st.metrics.latency.with_labels(keyspace, index_name).start_timer()
     try:
         keys, scores = await entry.actor.search(query, limit)
     except Exception as e:
-        timer.observe_duration()
         logger.exception("post_index_bm25 failed")
-        return _err(500, f"index.bm25 request error: {e}")
-    timer.observe_duration()
-    try:
-        primary_keys = collect_primary_keys(entry.metadata.primary_key_columns, keys)
-    except ValueError as e:
-        return _err(500, str(e))
-    return _json({"primary_keys": primary_keys, "scores": scores})
+        return 500, f"index.bm25 request error: {e}"
+    finally:
+        timer.observe_duration()
+    return 200, (entry.metadata.primary_key_columns, keys, scores)
 
 
 # ---------------------------------------------------------------------------
@@ -563,14 +606,15 @@ async def post_index_bm25(request: web.Request) -> web.Response:
 
 
 async def get_info(request: web.Request) -> web.Response:
-    st = _state(request)
-    return _json(
-        {
-            "engine": st.engine_version,
-            "service": vector_store_tpu_torch.SERVICE_NAME,
-            "version": vector_store_tpu_torch.__version__,
-        }
-    )
+    return _json(info_answer(_state(request)))
+
+
+def info_answer(st: AppState) -> dict:
+    return {
+        "engine": st.engine_version,
+        "service": vector_store_tpu_torch.SERVICE_NAME,
+        "version": vector_store_tpu_torch.__version__,
+    }
 
 
 async def get_status(request: web.Request) -> web.Response:

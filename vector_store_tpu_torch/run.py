@@ -11,13 +11,18 @@ scan kernels' plain PyTorch versions.
 
     python -m vector_store_tpu_torch.run   # VECTOR_STORE_* configuration
 
-Multi-process serving (``serve_scaled``: IPC + frontend processes) is not
-ported yet (ROADMAP.md, port queue).
+Multi-process serving: ``serve_scaled`` keeps the device, the engines and
+ingestion in this (owner) process and spawns frontend processes that bind
+the HTTP port with SO_REUSEPORT and forward requests over a unix-socket
+IPC (service/ipc.py, http/frontend.py). The frontends never open a CUDA
+context. A script that calls it needs an ``if __name__ == "__main__":``
+guard, since each spawned frontend imports the script again.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 import os
 import signal
@@ -120,11 +125,6 @@ async def build_service(
 ) -> Service:
     config = config or load_config()
     device = resolve_device(device)
-    if config.usearch_simulator or config.opensearch_uri:
-        raise NotImplementedError(
-            "the usearch simulator and OpenSearch engines are not ported yet "
-            "(ROADMAP.md, port queue)"
-        )
 
     node_state = NodeState()
     internals = Internals()
@@ -137,6 +137,13 @@ async def build_service(
     worker = Worker(threads=config.threads)
     worker.install_as_default(asyncio.get_running_loop())
 
+    # the host engines, chosen by their own settings (reference
+    # usearch_simulator / opensearch_addr)
+    engine_kind = config.engine_kind
+    if config.usearch_simulator:
+        engine_kind = f"sim:{config.usearch_simulator}"
+    elif config.opensearch_uri:
+        engine_kind = f"opensearch:{config.opensearch_uri}"
     engine = Engine(
         db,
         indexes,
@@ -144,7 +151,7 @@ async def build_service(
         memory=memory,
         metrics=metrics,
         internals=internals,
-        engine_kind=config.engine_kind,
+        engine_kind=engine_kind,
         device=device,
     )
     monitor = MonitorIndexes(
@@ -210,6 +217,86 @@ async def serve(
     http_server = HttpServer(service.app, service.config)
     await http_server.start()
     service.http_server = http_server
+    return service
+
+
+@contextlib.contextmanager
+def gpus_hidden():
+    """Processes started inside see no GPU (``CUDA_VISIBLE_DEVICES`` empty);
+    this process's environment is restored after."""
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+
+
+async def serve_scaled(
+    db: Db,
+    config: Config | None = None,
+    workers: int = 4,
+    ipc_path: str | None = None,
+    device: torch.device | str | None = None,
+) -> Service:
+    """Multi-process serving: this (owner) process keeps the device, the
+    engines, ingestion and the IPC endpoint; ``workers`` spawned frontend
+    processes bind the HTTP port with SO_REUSEPORT, do all HTTP/JSON work
+    and forward searches over unix sockets, which lifts the one-loop Python
+    HTTP ceiling. ``service.frontends`` holds the worker processes;
+    ``service.stop()`` ends them, then the IPC server, then the service."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    from vector_store_tpu_torch.http.frontend import frontend_worker_main
+    from vector_store_tpu_torch.service.ipc import OwnerIpcServer
+
+    service = await build_service(db, config, device)
+    cfg = service.config
+    ipc_dir = None
+    if ipc_path is None:
+        # a private directory (mkdtemp is 0700 and race-free): the frames
+        # are pickles, so no other local user may reach the socket
+        ipc_dir = tempfile.mkdtemp(prefix="vst-ipc-")
+        ipc_path = os.path.join(ipc_dir, "owner.sock")
+    ipc_server = OwnerIpcServer(service, ipc_path)
+    await ipc_server.start()
+    os.chmod(ipc_path, 0o600)
+    service.ipc_server = ipc_server  # type: ignore[attr-defined]
+
+    # spawn, never fork: the owner holds a CUDA context and threads. The
+    # frontends see no GPU, so none of them opens a context (each would
+    # cost device memory and start-up time)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [
+        ctx.Process(target=frontend_worker_main, args=(ipc_path, cfg.host, cfg.port), daemon=True)
+        for _ in range(workers)
+    ]
+    with gpus_hidden():
+        for p in procs:
+            p.start()
+    service.frontends = procs  # type: ignore[attr-defined]
+
+    orig_stop = service.stop
+
+    async def stop() -> None:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.join(timeout=5)
+        await ipc_server.stop()
+        if ipc_dir is not None:
+            shutil.rmtree(ipc_dir, ignore_errors=True)
+        elif os.path.exists(ipc_path):
+            os.unlink(ipc_path)
+        await orig_stop()
+
+    service.stop = stop  # type: ignore[method-assign]
+    logger.info("scaled serving: %d frontend workers on %s", workers, cfg.uri)
     return service
 
 

@@ -10,7 +10,10 @@ per kernel launch, so the actor's core is a micro-batching loop:
   vs_index/mod.rs:30-45); modify batches apply between search batches, and
   an aged modify preempts new dispatch for one bounded batch;
 - searches are pipelined: kernels launch as batches arrive while one
-  collector task pulls finished batches;
+  collector task pulls finished batches. The host engines (simulator,
+  OpenSearch) have no search_begin: they take the legacy path, one
+  executor call a batch (at most two in flight) that walks the oversample
+  ladder itself;
 - the engine's rebuild runs as background slices alongside searches, with
   only its swap and re-entry slices exclusive;
 - filtered search on a global index takes one of three regimes, chosen by
@@ -32,9 +35,11 @@ engine ("flat"); every B1 or Hamming index gets the flat engine under
 "auto" and "ivf"; "graph" gives a global index of any storage the graph
 engine; and a local (per-partition) index of any storage gets the flat
 engine whatever the kind says (its partition directory serves a query
-naming its partition). An engine kind not ported yet (a sharded one on a
-global index, the simulator, opensearch) raises NotImplementedError naming
-its ROADMAP.md entry; no other engine stands in.
+naming its partition). ``sim[:search:add-remove:reserve]`` and
+``opensearch:<uri>`` give every index the host engine of that name, as in
+the JAX package. An engine kind not ported yet (a sharded one on a global
+index) raises NotImplementedError naming its ROADMAP.md entry; no other
+engine stands in.
 
 The graph engine has no sliced maintenance API (``maintain_pending``): its
 delta merges and refinement slices run as the JAX actor runs them, one
@@ -78,6 +83,8 @@ from vector_store_tpu_torch.engine.flat import (
 )
 from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
 from vector_store_tpu_torch.engine.ivf import AllowMaskHandle, IvfDeviceIndex, ivf_supports
+from vector_store_tpu_torch.engine.opensearch import OpenSearchIndex
+from vector_store_tpu_torch.engine.simulator import SimulatorIndex, parse_delays
 
 logger = logging.getLogger(__name__)
 
@@ -115,9 +122,10 @@ class DimensionMismatch(ValueError):
 
 def make_engine(
     metadata: IndexMetadata, engine_kind: str, device: torch.device
-) -> IvfDeviceIndex | FlatDeviceIndex | GraphDeviceIndex:
-    """The device engine for one index, or NotImplementedError for what the
-    port does not serve yet."""
+) -> IvfDeviceIndex | FlatDeviceIndex | GraphDeviceIndex | SimulatorIndex | OpenSearchIndex:
+    """The engine for one index (a host engine for the ``sim`` and
+    ``opensearch:`` kinds), or NotImplementedError for what the port does
+    not serve yet."""
     vs = metadata.vs_options
     is_local = not metadata.partitioning.is_global
     if is_local and (engine_kind in ("auto", "ivf", "graph") or engine_kind.endswith("-sharded")):
@@ -128,10 +136,11 @@ def make_engine(
         # B1 storage and Hamming distance: the exact flat engine (its
         # Hamming scan and bf16 rescore tier), as in the JAX package
         engine_kind = "flat"
+    if engine_kind.startswith("sim") or engine_kind.startswith("opensearch:"):
+        return _host_engine(metadata, engine_kind)
     if engine_kind not in ("auto", "ivf", "flat", "graph"):
         raise NotImplementedError(
-            f"engine {engine_kind!r} is not ported yet (ROADMAP.md, port queue: "
-            "sharded engines, simulator/opensearch)"
+            f"engine {engine_kind!r} is not ported yet (ROADMAP.md, port queue: sharded engines)"
         )
     rescoring = vs.rescoring is not False
     oversample = None if vs.oversampling is None else math.ceil(vs.oversampling)
@@ -166,6 +175,39 @@ def make_engine(
         nprobe=max(8, int(vs.expansion_search) // 2),
         oversample=oversample,
         rescoring=rescoring,
+    )
+
+
+def _host_engine(metadata: IndexMetadata, engine_kind: str) -> SimulatorIndex | OpenSearchIndex:
+    """The host engines of the JAX package, chosen as it chooses them:
+    ``sim[:search:add-remove:reserve]`` (the reference's usearch simulator,
+    an exact numpy engine with delays) and ``opensearch:<uri>`` (a remote
+    OpenSearch cluster). Neither holds device state."""
+    vs = metadata.vs_options
+    if vs.oversampling is not None or vs.rescoring is not None:
+        # only the device engines implement the oversample + rescore
+        # contract; dropping the options must be visible, not silent
+        logger.warning(
+            "index %s: oversampling/rescoring options are not supported by "
+            "engine %r and were ignored", metadata.key, engine_kind,
+        )
+    if engine_kind.startswith("sim"):
+        spec = engine_kind.partition(":")[2]
+        return SimulatorIndex(
+            int(vs.dimensions),
+            space_type=vs.space_type,
+            quantization=vs.quantization,
+            delays=parse_delays(spec) if spec else (0.0, 0.0, 0.0),
+        )
+    return OpenSearchIndex(
+        engine_kind.partition(":")[2],
+        f"{metadata.keyspace_name}-{metadata.index_name}",
+        int(vs.dimensions),
+        space_type=vs.space_type,
+        quantization=vs.quantization,
+        connectivity=int(vs.connectivity),
+        expansion_add=int(vs.expansion_add),
+        expansion_search=int(vs.expansion_search),
     )
 
 
@@ -219,8 +261,11 @@ class VsIndexActor:
             logger.error("index %s cannot be served: %s", metadata.key, exc)
             self.unsupported = exc
         self.engine_kind = engine_kind
-        if self.memory is not None and self.engine is not None:
+        if self.memory is not None and hasattr(self.engine, "device_bytes"):
             self.memory.register_engine(self.engine)
+        # engines without search_begin (the host engines) take the legacy
+        # one-call-a-batch path
+        self._pipelined = hasattr(self.engine, "search_begin")
 
         self._search_queue: asyncio.Queue = asyncio.Queue()
         self._modify_queue: list[Operation] = []
@@ -272,6 +317,12 @@ class VsIndexActor:
 
     async def ann(self, vector: list[float], limit: int) -> list[tuple[PrimaryKey, Distance]]:
         return await self._submit(vector, limit, None)
+
+    async def ann_many(self, vectors: np.ndarray, limit: int) -> list[list[tuple[PrimaryKey, Distance]]]:
+        """Bulk unfiltered ANN: n queries submitted together, so they
+        coalesce into the same device batches (one await for the caller)."""
+        vectors = np.atleast_2d(np.asarray(vectors, dtype=np.float32))
+        return await asyncio.gather(*(self._submit(v, limit, None) for v in vectors))
 
     async def filtered_ann(
         self, vector: list[float], restrictions: list[Restriction], limit: int
@@ -360,6 +411,20 @@ class VsIndexActor:
                 )
             self._modify_event.set()  # wake the idle wait
 
+        def launch_legacy(batch: list[_SearchRequest]) -> None:
+            fut = loop.run_in_executor(None, self._execute_search_batch, batch)
+
+            def _done(f: asyncio.Future, batch=batch) -> None:
+                inflight.discard(f)
+                exc = f.exception() if not f.cancelled() else None
+                if exc is not None:
+                    for req in batch:
+                        if not req.future.done():
+                            req.future.set_exception(exc)
+
+            fut.add_done_callback(_done)
+            inflight.add(fut)
+
         def launch(batches: list[list[_SearchRequest]]) -> asyncio.Future:
             fut = loop.run_in_executor(None, self._begin_window, batches)
 
@@ -413,16 +478,15 @@ class VsIndexActor:
             )
 
             # 1) searches first (biased recv)
-            if (
-                not swap_due
-                and not modify_due
-                and not self._search_queue.empty()
-                and len(inflight) + len(self._inflight_collects) < MAX_INFLIGHT
-            ):
+            searches = not swap_due and not modify_due and not self._search_queue.empty()
+            if searches and self._pipelined and len(inflight) + len(self._inflight_collects) < MAX_INFLIGHT:
                 batches = [self._drain_searches()]
                 while not self._search_queue.empty() and len(batches) < MAX_INFLIGHT:
                     batches.append(self._drain_searches())
                 await launch(batches)
+                continue
+            if searches and not self._pipelined and len(inflight) < 2:
+                launch_legacy(self._drain_searches())
                 continue
 
             if inflight:
@@ -697,6 +761,56 @@ class VsIndexActor:
         if requeue:
             self._modify_event.set()  # wake the scheduler if idle
 
+    # executed in a worker thread
+    @hotpath.measure
+    def _execute_search_batch(self, batch: list[_SearchRequest]) -> None:
+        """The legacy path (engines without search_begin): the batch walks
+        the oversample ladder with one engine search a rung, each request
+        entering at the rung its filter learned. A repeat filter whose
+        fresh match set is ladder-hopeless (S * 64 < N) goes straight to the
+        grouped subset-exact terminal, as _begin_window triages it; a
+        request that exhausts the ladder ends there too."""
+        pending = batch
+        if not self.is_local and self._match_cache and hasattr(self.engine, "search_exact_host_subset"):
+            stamp = self.table.mutations
+            n_total = max(self.engine.size, 1)
+            direct: list[_SearchRequest] = []
+            keep: list[_SearchRequest] = []
+            for req in pending:
+                hit = self._match_cache.get(req.sig) if req.sig is not None else None
+                if hit is not None and hit[0] == stamp and hit[1].size * OVERSAMPLE_STEPS[-1] < n_total:
+                    direct.append(req)
+                else:
+                    keep.append(req)
+            if direct:
+                self._finish_terminal(direct)
+            pending = keep
+        for step in (1,) + OVERSAMPLE_STEPS:
+            ready = [r for r in pending if r.oversample <= step]
+            if not ready:
+                continue
+            k = min(max(r.limit * step for r in ready), max(self.engine.size, 1))
+            results = self.engine.search(np.stack([r.vector for r in ready]), k, self._partitions(ready))
+            later = [r for r in pending if r.oversample > step]
+            pending = []
+            for req, res in zip(ready, results):
+                resolved = self._resolve(req, res)
+                if len(resolved) >= req.limit or self._exhausted(req, res, k):
+                    if req.sig is not None:
+                        req.oversample = step  # the rung that answered
+                        self._remember_ladder(req.sig, step)
+                    self._finish(req, resolved[: req.limit])
+                else:
+                    self._escalations += 1
+                    self._count("oversample_escalations")
+                    pending.append(req)
+            pending += later
+        if pending:  # the ladder is exhausted
+            for req in pending:
+                if req.sig is not None:
+                    self._remember_ladder(req.sig, OVERSAMPLE_STEPS[-1])
+            self._finish_terminal(pending)
+
     def _count(self, name: str, amount: int = 1) -> None:
         """Mirror a filtered-path counter into /api/internals/counters."""
         if self.internals is not None:
@@ -722,7 +836,7 @@ class VsIndexActor:
         flat engine's directory reads in O(1)."""
         if res.slots.size >= self.engine.size or k_used >= self.engine.size:
             return True
-        if req.partition is not None:
+        if req.partition is not None and hasattr(self.engine, "partition_count"):
             return k_used >= max(self.engine.partition_count(req.partition.slot), 1)
         return False
 
@@ -810,7 +924,7 @@ class VsIndexActor:
         self._count("exact_host_fallbacks")
         if not hasattr(self.engine, "search_exact_host"):
             size = max(self.engine.size, 1)
-            if req.partition is not None:
+            if req.partition is not None and hasattr(self.engine, "partition_count"):
                 size = max(min(size, self.engine.partition_count(req.partition.slot)), 1)
             k = min(size, req.limit * OVERSAMPLE_STEPS[-1] * 4)
             while True:
