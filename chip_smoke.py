@@ -87,7 +87,8 @@ failure:
    (COSINE, rescoring on, oversample 4), served by the flat engine's
    Hamming scan and bf16 rescore tier. 128 requests at 64 in flight:
    recall@10 against exact f32 (printed); for 32 of them the scan's
-   Hamming top-40 against an oracle built on the card from the rows' signs
+   Hamming top-64 (the JAX engine's fetch at k 10: k's bucket 16 x the
+   oversample 4) against an oracle built on the card from the rows' signs
    (the distances equal as multisets) and their recall no lower than the
    oracle's (the same candidates re-ranked in exact f32) minus 0.01;
    self-queries and one CDC insert found first at distance 0 (a rounded
@@ -126,6 +127,22 @@ failure:
    400 through the IPC; the fused and grouped scans' launches in the
    owner during the HTTP requests (> 0); and nvidia-smi listing one
    compute process, holding at least the owner's reserved memory.
+13. bench twin: ``python -m vector_store_tpu_torch.benchkit.headline`` (the
+   twin of the root bench.py) in a process of its own at full width:
+   1,000,000 x 128 rows in 256 clusters, EUCLIDEAN, BF16, IVF, batch 4096.
+   Its JSON line must hold recall_gate_passed (recall@10 >= 0.95); its QPS
+   at the gate, p50, bounded point, build rate, compute-side rate, nlist
+   and nprobe are printed beside the card's name and power limit. Then
+   every other runner of ``python -m vector_store_tpu_torch.benchkit.scale``
+   (dbpedia-bf16, dbpedia-i8, deep10m, glove, graph, partition, filtered,
+   filtered-diverse, filtered-engine, streaming, streaming-actor, http) in
+   a process of its own at SCALE_N = 131,072 rows (above the IVF engine's
+   min_build), SCALE_STREAM_SECONDS = 10, HTTP_BENCH_SECONDS = 3, three
+   processes at a time (runners that share a dataset file in one lane):
+   each must exit 0 and print its JSON line with every recall in [0, 1];
+   its wall time is printed. Each process prints its scan kernels' launch
+   counts on the line before its JSON; they are added to the kernels line,
+   and the headline's launches of kernels 1 and 2 must be > 0.
    The smoke's total wall time is printed last of all phases.
 
 Phase 3 also holds both scans under a slot filter against their plain
@@ -135,7 +152,8 @@ each timed beside its unmasked reading.
 
 The last three lines of standard output are: one JSON object describing
 the kernels (the F32 fused and grouped scans' launches are phase 5's and
-phase 12's together), the nvidia-smi name/power-limit line, and
+phase 12's together, and every kernel's count includes phase 13's
+processes), the nvidia-smi name/power-limit line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -147,7 +165,9 @@ import json
 import os
 import socket
 import statistics
+import signal
 import subprocess
+import sys
 import threading
 import time
 
@@ -190,6 +210,17 @@ SCALED_CLIENTS = 2
 SCALED_IN_FLIGHT = (64, 256)
 SCALED_WARM_S, SCALED_RUN_S = 2.0, 10.0
 CEILING_BATCH, CEILING_TASKS, CEILING_S = 1024, 4, 5.0  # the in-process ceiling (actor.ann_many)
+# the bench twin (phase 13): the headline at full width, then every scale
+# runner at reduced depth, in lanes of runners that share a dataset file
+# (benchkit/synth.py's rows_file_np writes one file a seed and shape)
+HEADLINE_ENV = {"BENCH_N": "1000000", "BENCH_BATCH": "4096"}
+SCALE_ENV = {"SCALE_N": "131072", "SCALE_STREAM_SECONDS": "10", "HTTP_BENCH_SECONDS": "3"}
+SCALE_LANES = (
+    ("dbpedia-bf16", "dbpedia-i8", "glove", "filtered-1000k"),
+    ("streaming-1000k", "streaming-actor-1000k", "deep10m", "partition-1000k"),
+    ("filtered-engine-1000k", "http-1000k", "graph-1000k", "filtered-diverse-1000k"),
+)
+BENCH_TIMEOUT_S = 420
 # each kernel's time under the port's first scan core, before its redesign
 # for Hopper: ms at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W,
 # copied from PERF.md section 5 (that core's last full smoke run), not
@@ -1367,7 +1398,7 @@ async def b1_phase(device, card: str) -> None:
 
     from vector_store_tpu_torch.core.types import Quantization
     from vector_store_tpu_torch.db.fake import FakeDb, FakeIndex, FakeTable, make_vs_metadata, vector_row
-    from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
+    from vector_store_tpu_torch.engine.flat import FlatDeviceIndex, k_bucket
     from vector_store_tpu_torch.run import serve
     from vector_store_tpu_torch.service.config import Config
 
@@ -1382,13 +1413,15 @@ async def b1_phase(device, card: str) -> None:
     data_dev = torch.from_numpy(data).to(device)
     q_dev = torch.from_numpy(queries).to(device)
     gt = exact_top_k(data_dev, q_dev, K)
-    # the oracle of the first B1_ORACLE queries: Hamming top-(oversample k)
-    # from the rows' signs, re-ranked by exact f32 cosine
+    # the oracle of the first B1_ORACLE queries: the Hamming top-kc from the
+    # rows' signs (kc: the JAX engine's fetch, k's bucket times the
+    # oversample), re-ranked by exact f32 cosine
+    kc = k_bucket(k_bucket(K) * B1_OVERSAMPLE)
     bits = data_dev > 0
     del data_dev
     torch.cuda.empty_cache()
     q_or = q_dev[:B1_ORACLE]
-    oracle_d, oracle_rows = hamming_oracle(bits, (q_or > 0).float(), K * B1_OVERSAMPLE)
+    oracle_d, oracle_rows = hamming_oracle(bits, (q_or > 0).float(), kc)
     del bits
     torch.cuda.empty_cache()
     cand = torch.stack([torch.from_numpy(data[r]).to(device) for r in oracle_rows.cpu().numpy()])  # [B, kc, D]
@@ -1416,6 +1449,7 @@ async def b1_phase(device, card: str) -> None:
             check(isinstance(engine, FlatDeviceIndex) and engine.vectors.dtype is torch.uint8,
                   "the B1 index is not on the flat engine's packed rows")
             check(engine.rescore and engine.oversample == B1_OVERSAMPLE, "the B1 index has no rescore tier")
+            check(engine.lossy_fetch(K) == kc, f"the B1 scan fetches {engine.lossy_fetch(K)} candidates, not {kc}")
             print(f"[b1] {n} rows ingested in {ingest_s:.1f} s; flat engine, {engine.dp}-byte packed rows, "
                   f"capacity {engine.capacity}, bf16 rescore tier, oversample {engine.oversample}, "
                   f"device bytes {engine.device_bytes:,}", flush=True)
@@ -1440,13 +1474,13 @@ async def b1_phase(device, card: str) -> None:
             # the scan's candidates against the oracle's, as multisets of
             # Hamming distances (rows may differ only among ties)
             qs = engine.query_tensor(queries[:B1_ORACLE])
-            dist, rows = engine._flat_search(qs, K * engine.oversample)
+            dist, rows = engine._flat_search(qs, kc)
             check(torch.equal(dist, oracle_d), "the B1 scan's Hamming candidates differ from the oracle's")
             held = float((dist[:, -1:] > dist).float().mean())  # share of candidates strictly inside the cut
             port_recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got[:B1_ORACLE], gt)]))
             oracle_recall = float(np.mean([len(set(o.tolist()) & set(t.tolist())) / K
                                            for o, t in zip(oracle_top, gt)]))
-            print(f"[b1] {B1_ORACLE} queries: Hamming top-{K * engine.oversample} distances equal to the oracle's "
+            print(f"[b1] {B1_ORACLE} queries: Hamming top-{kc} distances equal to the oracle's "
                   f"({held:.3f} of them strictly inside the cut-off); recall@{K} {port_recall:.4f} against the "
                   f"oracle's (the same candidates re-ranked in exact f32) {oracle_recall:.4f}", flush=True)
             check(port_recall >= oracle_recall - 0.01,
@@ -1575,9 +1609,9 @@ async def local_i8_phase(device, card: str) -> None:
             check(launches == 0, "the partition scan launched for I8 rows")
 
             # the directory's gather against the masked scan, both fetching
-            # the tier's oversample x k candidates, and the f64 sum of the
-            # gather's I8 block distances against an f32 one
-            kc = K * engine.oversample
+            # the tier's candidates (the engine's lossy_fetch at k 10), and
+            # the f64 sum of the gather's I8 block distances against an f32 one
+            kc = engine.lossy_fetch(K)
             crossing = {}
             for nq in (64, 2048):
                 sel = rng.integers(0, n, size=nq)
@@ -2165,6 +2199,98 @@ async def scaled_phase(device, card: str, phase5_qps: float) -> dict:
         await service.stop()
 
 
+def bench_process(module: str, args: list[str], env: dict, timeout: float = BENCH_TIMEOUT_S) -> tuple[dict, dict, float]:
+    """Phase 13: one bench program (``python -m module args``) in a process
+    of its own, from the checkout's root, leading a process group of its
+    own (the HTTP runner spawns frontends and clients: a timeout ends them
+    all). Returns
+    (its JSON line, its launch counts, its wall seconds); fails the smoke if
+    it exits non-zero, times out or prints no JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, **env}, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        print(err[-4000:], flush=True)
+        check(False, f"{module} {args} ran past {timeout} s")
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(err[-4000:], flush=True)
+        check(False, f"{module} {args} exited {proc.returncode}")
+    launch_lines = [line for line in lines if line.startswith("[launches] ")]
+    check(len(launch_lines) == 1, f"{module} {args} printed no launch counts")
+    return json.loads(lines[-1]), json.loads(launch_lines[0].removeprefix("[launches] ")), wall
+
+
+def recalls(result, prefix: str = "") -> dict[str, float]:
+    """Every number under a key that names a recall, anywhere in a JSON
+    line (the buckets' and bands' too), by its path."""
+    found = {}
+    for key, value in result.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            if "recall" in key:
+                found.update({f"{path}.{k}": v for k, v in value.items() if isinstance(v, (int, float))})
+            found.update(recalls(value, path + "."))
+        elif "recall" in key and isinstance(value, (int, float)) and not isinstance(value, bool):
+            found[path] = float(value)
+    return found
+
+
+def bench_phase(card: str) -> dict[str, int]:
+    """Phase 13: the headline at full width, then every scale runner at
+    reduced depth. Returns the launch counts of all its processes, by
+    kernel name."""
+    t_phase = time.perf_counter()
+    res, launches, wall = bench_process("vector_store_tpu_torch.benchkit.headline", [], HEADLINE_ENV)
+    print(f"[bench] headline (the bench.py twin) on {card}: {res['value']} QPS at recall@10 {res['recall_at_10']} "
+          f"(gate passed: {res['recall_gate_passed']}), p50 {res['p50_query_latency_ms']} ms at "
+          f"{res['in_flight_batches']} batches of {res['batch']} in flight, qps_at_p50_500ms "
+          f"{res['qps_at_p50_500ms']} (p50 {res['p50_at_bounded_ms']} ms, {res['bounded_in_flight']} in flight), "
+          f"burst {res['burst_qps_agg24']} QPS, single batch {res['single_batch_rtt_ms']} ms, build "
+          f"{res['build_vectors_per_sec']} vectors/s (ingest {res['ingest_seconds']} s + cluster "
+          f"{res['cluster_seconds']} s; dataset file {res['dataset_gen_seconds']} s), compute-side "
+          f"{res['compute_side_qps']} QPS, nlist {res['nlist']}, nprobe {res['nprobe']}, vs_baseline "
+          f"{res['vs_baseline']}; launches {launches}; process wall {wall:.1f} s", flush=True)
+    check(res["recall_gate_passed"] and res["recall_at_10"] >= 0.95,
+          f"the headline's recall@10 {res['recall_at_10']} is under 0.95")
+    check(launches["fused_scan"] + launches["fused_scan_bf16"] > 0 and launches["grouped_scan"] > 0,
+          f"the headline did not launch kernels 1 and 2: {launches}")
+    total = dict(launches)
+
+    def lane(names, done: list) -> None:
+        for name in names:
+            done.append((name, *bench_process("vector_store_tpu_torch.benchkit.scale", [name], SCALE_ENV)))
+
+    t_runs = time.perf_counter()
+    done: list = []
+    threads = [threading.Thread(target=lane, args=(names, done)) for names in SCALE_LANES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(len(done) == sum(len(names) for names in SCALE_LANES), "a scale runner failed (see above)")
+    for name, res, counts, wall in done:
+        rec = recalls(res)
+        check(all(0.0 <= v <= 1.0 for v in rec.values()), f"{name}: a recall outside [0, 1]: {rec}")
+        shown = {k: res[k] for k in ("e2e_qps", "e2e_qps_burst", "compute_side_qps", "query_qps_under_churn",
+                                     "http_qps", "actor_qps", "unfiltered_qps", "device_bytes") if k in res}
+        print(f"[bench] {name} ({res['config']}): exit 0 in {wall:.1f} s; recalls "
+              f"{ {k: round(v, 4) for k, v in rec.items()} }; {shown}; launches {counts}", flush=True)
+        for k, v in counts.items():
+            total[k] += v
+    print(f"[bench] {len(done)} scale runners at SCALE_N {SCALE_ENV['SCALE_N']} in {time.perf_counter() - t_runs:.1f} s "
+          f"({len(SCALE_LANES)} at a time); phase 13 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
@@ -2230,6 +2356,13 @@ def main() -> None:
           "the kernels line gives their sums", flush=True)
     for name, count in scaled.items():
         launches[name] += count
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the bench twin")
+    bench = bench_phase(card)
+    print(f"[bench] phase 13 launches (added to the kernels line): {bench}", flush=True)
+    for name, count in bench.items():
+        launches[name] = launches.get(name, 0) + count
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:
         entry["launches"] = launches[entry["name"]]

@@ -140,7 +140,9 @@ def test_flat_b1_search_and_rescore_match_jax(space):
     p, _, x, queries = _flat_pair(space, 3)
     assert not p.normalize  # a B1 cosine index keeps its rows' scale
     qs, q_aux = distance.prepare_queries(queries, space, B1)
-    k, kk = 8, 8 * p.oversample
+    k = 8
+    kk = p.lossy_fetch(k)  # the JAX engine's count: bucket 16 x oversample 4
+    assert kk == 64
     dist, slots = p._flat_search(qs, kk)
     cap = p.capacity
     packed = jflat._flat_search(
@@ -187,14 +189,39 @@ def test_flat_b1_engine_answers_like_jax(space, rescoring):
             assert (got.distances == np.round(got.distances)).all()
 
 
+@pytest.mark.parametrize("quant", (B1, Quantization.I8), ids=["b1", "i8"])
+@pytest.mark.parametrize("space", (SpaceType.COSINE, SpaceType.EUCLIDEAN))
+def test_lossy_search_at_k10_fetches_what_jax_fetches(space, quant):
+    """At k 10 the port fetches the JAX engine's candidate count (k rounded
+    up to its bucket 16, times oversample 4: 64) and returns its k-10 slots,
+    epochs and distances."""
+    from vector_store_tpu.engine.flat import FlatDeviceIndex as JaxFlat
+
+    rng = np.random.default_rng(11)
+    n, d = 600, 40
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    p = FlatDeviceIndex(d, space, quant, device=CPU, initial_capacity=1024, block_rows=128)
+    j = JaxFlat(d, space_type=to_jax(space), quantization=to_jax(quant), initial_capacity=1024, block_rows=128)
+    for eng in (p, j):
+        eng.upsert_batch(np.arange(n), np.arange(n, dtype=np.int32) % 5, x)
+        eng.remove_batch(np.arange(0, n, 7))
+    assert p.lossy_fetch(10) == 64 and p.lossy_fetch(17) == 256
+    queries = x[rng.integers(0, n, 12)] + 0.3 * rng.normal(size=(12, d)).astype(np.float32)
+    for got, want in zip(p.search(queries, 10), j.search(queries, 10)):
+        np.testing.assert_array_equal(got.slots, want.slots)
+        np.testing.assert_array_equal(got.epochs, want.epochs)
+        atol = 1e-6 * max(1.0, float(np.abs(want.distances).max()))
+        np.testing.assert_allclose(got.distances, want.distances, rtol=1e-6, atol=atol)
+
+
 def test_quantized_recall_b1_twin():
     """tests/test_engine_flat.py::test_quantized_recall[B1] on the port: its
     data shape, at the JAX engine's candidate count (search at k 10 takes
     its k bucket 16 x oversample 4 = 64 Hamming candidates; the port takes
     64 at k 16, truncated to 10). The port returns the JAX engine's rows,
     and recall@10 against the exact cosine top-10 holds the JAX test's
-    floor, 0.6. (The port's own k 10 fetches 40 candidates: it carries no
-    k buckets.)"""
+    floor, 0.6. (The port's own k 10 fetches the same 64 candidates:
+    test_lossy_search_at_k10_fetches_what_jax_fetches.)"""
     from vector_store_tpu.engine.flat import FlatDeviceIndex as JaxFlat
 
     rng = np.random.default_rng(7)

@@ -1,15 +1,17 @@
 """The port stands alone: its serving stack, its own fake DB, the engines
-and ops, the stage-ablation script and the chip smoke script load in a
-fresh interpreter without jax and without any module of the JAX package.
-(A subprocess, because this test process imported jax in conftest.)
+and ops, the stage-ablation script, the bench programs (benchkit) and the
+chip smoke script load in a fresh interpreter without jax and without any
+module of the JAX package. (A subprocess, because this test process
+imported jax in conftest.)
 
-The modules a frontend process of ``serve_scaled`` imports load no torch
-either, and importing the engines turns TF32 off for float32 products.
+The modules a frontend process of ``serve_scaled`` or a client process of
+benchkit/http_bench.py imports load no torch either, and importing the
+engines turns TF32 off for float32 products.
 
 The device-free modules the port copied from the JAX package must not
 drift from their originals: each copy equals its original with
 ``vector_store_tpu.`` read as ``vector_store_tpu_torch.``, apart from the
-few lines named in ALLOWED below.
+few lines named in ALLOWED and the definitions named in REMOVED below.
 """
 
 import ast
@@ -69,7 +71,21 @@ COPIED = (
     "engine/opensearch.py",
     "http/frontend.py",
     "client.py",
+    "benchkit/__init__.py",
+    "benchkit/data.py",
+    "benchkit/recall.py",
+    "benchkit/harness.py",
+    "benchkit/load.py",
+    "benchkit/fts_bench.py",
+    "benchkit/synth.py",
 )
+
+# copy -> the original's top-level definitions the copy leaves out: the
+# device half of benchkit/synth.py generated rows on the TPU for its relay
+# (the port copies host rows to the GPU instead)
+REMOVED = {
+    "benchkit/synth.py": {"functools", "_ava_jx", "_noise_jx", "_rows_jx", "synth_rows_jax"},
+}
 
 # copy -> the only lines (on either side) where a copy may differ from its
 # rewritten original: the package constants live in the port's own
@@ -105,8 +121,15 @@ ALLOWED = {
         "vector_store_tpu_torch.bench.scan_ablation",
         "vector_store_tpu_torch.engine.simulator, vector_store_tpu_torch.engine.opensearch, "
         "vector_store_tpu_torch.service.ipc, vector_store_tpu_torch.http.frontend",
+        "vector_store_tpu_torch.benchkit, vector_store_tpu_torch.benchkit.synth, "
+        "vector_store_tpu_torch.benchkit.common, vector_store_tpu_torch.benchkit.headline, "
+        "vector_store_tpu_torch.benchkit.scale, vector_store_tpu_torch.benchkit.suite, "
+        "vector_store_tpu_torch.benchkit.http_bench, vector_store_tpu_torch.benchkit.pipeline, "
+        "vector_store_tpu_torch.benchkit.harness, vector_store_tpu_torch.benchkit.load, "
+        "vector_store_tpu_torch.benchkit.fts_bench",
     ],
-    ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation", "scan-ablation", "scaled-serving"],
+    ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation", "scan-ablation", "scaled-serving",
+         "benchkit"],
 )
 def test_no_jax_in_sys_modules(modules):
     # requests too: the OpenSearch engine imports it only to open a session
@@ -134,6 +157,13 @@ def test_frontend_process_loads_no_torch():
     JAX package: a frontend stays small and never reaches the GPU."""
     modules = "vector_store_tpu_torch.http.frontend, vector_store_tpu_torch.service.ipc, vector_store_tpu_torch.client"
     assert _loaded(modules, FORBIDDEN + ("requests", "torch")) == []
+
+
+def test_http_bench_client_loads_no_torch():
+    """A client process of benchkit/http_bench.py imports the module to
+    reach its entry point: that loads no torch (and nothing of JAX)."""
+    modules = "vector_store_tpu_torch.benchkit.http_bench, vector_store_tpu_torch.service.ipc"
+    assert _loaded(modules, FORBIDDEN + ("torch",)) == []
 
 
 def test_f32_products_never_take_tf32():
@@ -166,14 +196,38 @@ def test_copied_modules_are_listed():
         "http/__init__.py", "http/routes.py", "ops/__init__.py", "ops/distance.py",
         "ops/ivf.py", "ops/partition_scan.py", "ops/quantize.py", "ops/topk.py",
         "service/__init__.py", "service/engine.py", "service/ipc.py", "service/memory.py",
-        "service/vs_index.py",
+        "service/vs_index.py", "benchkit/scale.py", "benchkit/suite.py", "benchkit/http_bench.py",
+        "benchkit/pipeline.py",
     }
     assert twins - rewrites == set(COPIED)
+
+
+def without(source: str, names: set[str]) -> str:
+    """``source`` less its top-level definitions (and imports) of ``names``
+    and the blank lines after each."""
+    lines = source.splitlines(keepends=True)
+    spans = []
+    for node in ast.parse(source).body:
+        name = node.names[0].name if isinstance(node, ast.Import) else getattr(node, "name", None)
+        if name in names:
+            start = (node.decorator_list[0].lineno if getattr(node, "decorator_list", None) else node.lineno) - 1
+            end = node.end_lineno
+            while end < len(lines) and not lines[end].strip():
+                end += 1
+            spans.append((start, end))
+    for start, end in sorted(spans, reverse=True):
+        del lines[start:end]
+    return "".join(lines)
 
 
 @pytest.mark.parametrize("rel", COPIED)
 def test_copy_matches_original(rel):
     original = (REPO / "vector_store_tpu" / rel).read_text()
+    if rel in REMOVED:
+        shorter = without(original, REMOVED[rel])
+        for name in REMOVED[rel]:  # each one the original still defines
+            assert without(original, {name}) != original, name
+        original = shorter
     original = original.replace("vector_store_tpu.", "vector_store_tpu_torch.")
     copy = (REPO / "vector_store_tpu_torch" / rel).read_text()
     changed = {

@@ -142,6 +142,18 @@ def test_local_lossy_search_matches_jax(quant, space, rescoring):
     assert ps.partition_scan.launches == launches  # no kernel 3 for lossy storage
 
 
+@pytest.mark.parametrize("quant,space", KINDS, ids=IDS)
+def test_local_lossy_search_at_k10_matches_jax(quant, space):
+    """At k 10 the directory's gather fetches the JAX engine's count (k's
+    bucket 16 x oversample 4 = 64, capped by pmax) on both sides: the same
+    k-10 slots, epochs and distances."""
+    pair, vecs, _ = lossy_pair(space, quant)
+    p, j = pair.p, pair.j
+    assert p.lossy_fetch(10, p._part_rows_host.shape[1]) == 64
+    q = queries_for(vecs)
+    assert_same_results(p.search(q, 10, partitions=PSEL), j.search(q, 10, partitions=PSEL), q=q)
+
+
 # a lossy index takes the directory while pmax <= PART_CROSSOVER_LOSSY x
 # capacity: pmax 256 wants 12,191 rows of capacity
 CAPACITY = 16384

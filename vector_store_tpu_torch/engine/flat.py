@@ -22,7 +22,8 @@ usearch.rs:1067-1154).
 Lossy storage (I8, B1) has no fused scan (the JAX package ran it as XLA,
 not Pallas): its search is an exact block-wise scan (``_flat_search``:
 integer products for I8, Hamming distances for B1) that fetches
-``oversample`` x k candidates, re-ranked by the bf16 rescore tier
+``oversample`` x k candidates (k and the count rounded up to the JAX
+package's k buckets), re-ranked by the bf16 rescore tier
 (``rescore_vectors`` [cap, Dp'] bf16 and ``rescore_aux``,
 ``_rescore_stage``): the reference's oversampling and rescoring index
 options. Its results carry the device's distances (the tier's bf16
@@ -107,6 +108,23 @@ PART_CROSSOVER = 0.27
 # chip_smoke.py phase 10 on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.021
 # and 0.012 in two runs, their mean; 0.05 and 0.03 at B = 64; PERF.md).
 PART_CROSSOVER_LOSSY = 0.017
+
+# The JAX package's k buckets. A lossy search rounds k up to one of them
+# before it oversamples, and rounds the candidate count up to one again
+# (vector_store_tpu/engine/flat.py:53-58,1454-1458,1578-1582): at k 10 and
+# oversample 4 it re-ranks 64 candidates, not 40. They are kept for that
+# effect on the answer, as the graph engine keeps them for its beam's
+# width; no shape is padded to them.
+K_BUCKETS = (16, 64, 256, 1024)
+
+
+def k_bucket(n: int, buckets: tuple[int, ...] = K_BUCKETS) -> int:
+    """The smallest bucket holding n; past the last, n rounded up to a
+    multiple of the last."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return -(-n // buckets[-1]) * buckets[-1]
 
 
 @dataclass
@@ -979,21 +997,33 @@ class FlatDeviceIndex:
         the rows whose bias ``b`` is valid; ``psel`` restricts each query to
         its partition. The directory's exact gather (where it serves the
         batch and ``directory`` allows it) or the block-wise scan fetches
-        oversample x k candidates, min(oversample x k, pmax) from a bucket,
-        and the rescore tier keeps k (with rescoring off, the scan's k in
-        storage precision): the JAX package's _part_begin and search_begin.
+        ``lossy_fetch(k)`` candidates, and the rescore tier keeps k (with
+        rescoring off, the scan's k in storage precision): the JAX
+        package's _part_begin and search_begin.
         Returns (dist [B, k] f32 ascending, slot [B, k] i32 or -1)."""
-        kc = k * self.oversample
         bsel = self._directory_buckets(psel) if psel is not None and directory else None
         if bsel is not None:
-            dist, rows = self._part_gather(qs, bsel, min(kc, self._part_rows_host.shape[1]))
+            dist, rows = self._part_gather(qs, bsel, self.lossy_fetch(k, self._part_rows_host.shape[1]))
         else:
             psel_t = None if psel is None else torch.from_numpy(psel.astype(np.int32)).to(self.device)
-            dist, rows = self._flat_search(qs, min(kc, self.capacity), psel_t, b)
+            dist, rows = self._flat_search(qs, min(self.lossy_fetch(k), self.capacity), psel_t, b)
         if not self.rescore:
             return dist[:, :k], rows[:, :k]
         rqs, rq_aux = prepare_queries(queries, self.space_type, Quantization.BF16)
         return self._rescore_stage(rows, rqs.to(self.device), rq_aux.to(self.device), k)
+
+    def lossy_fetch(self, k: int, pmax: int | None = None) -> int:
+        """The candidates a lossy search fetches for k results, as the JAX
+        engine counts them: k rounded up to its bucket, times the
+        oversample with rescoring on, capped by the capacity and rounded up
+        to a bucket again; from a partition's bucket (``pmax`` rows) the
+        same count capped by pmax."""
+        kp = k_bucket(k)
+        if not self.rescore:
+            return kp if pmax is None else min(kp, pmax)
+        if pmax is None:
+            return k_bucket(min(kp * self.oversample, self.capacity))
+        return min(k_bucket(min(kp * self.oversample, pmax)), pmax)
 
     @hotpath.measure
     def search_collect(self, pending: PendingSearch) -> list[SearchResult]:

@@ -59,6 +59,7 @@ from vector_store_tpu_torch.engine.flat import (
     SearchResult,
     dist_results,
     ids_postprocess,
+    k_bucket,
     normalize_rows,
     pull_packed,
 )
@@ -74,17 +75,9 @@ from vector_store_tpu_torch.utils import hotpath
 
 DEFAULT_ENTRIES = 32
 # result width of a beam search: k (times the oversample) rounded up to
-# one of these; the beam is at least this wide (the JAX package's k
-# buckets, kept because they decide the beam's width and so the recall)
-K_BUCKETS = (16, 64, 256, 1024)
+# one of flat.K_BUCKETS; the beam is at least this wide (the JAX package's
+# k buckets, kept because they decide the beam's width and so the recall)
 INF = float("inf")
-
-
-def _bucket(n: int, buckets: tuple[int, ...]) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return -(-n // buckets[-1]) * buckets[-1]
 
 
 def _lex_order(primary: torch.Tensor, secondary: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -602,7 +595,7 @@ class GraphDeviceIndex:
         lockstep counterpart of HNSW's upper layers)."""
         want = int(2.0 * np.sqrt(max(self._graph_nodes, 1)))
         want = max(self.n_entries, min(want, self._ENTRY_BUCKETS[-1]))
-        return _bucket(want, self._ENTRY_BUCKETS)
+        return k_bucket(want, self._ENTRY_BUCKETS)
 
     def _note_entries(self, batch) -> None:
         """Reservoir-maintain the entry set over all merged nodes: the
@@ -1259,7 +1252,7 @@ class GraphDeviceIndex:
             mirror_path = self._rescore_host is not None
             if (ids_path or mirror_path) and self.oversample > 1:
                 k_fetch = min(k * self.oversample, max(self._graph_nodes, 1))
-            k_pad = _bucket(k_fetch, K_BUCKETS)
+            k_pad = k_bucket(k_fetch)
             qs, q_aux = prepare_queries(queries, self.space_type, self.quantization)
             ef = max(expansion or self.expansion_search, k_pad)
             filtered = allow_mask is not None

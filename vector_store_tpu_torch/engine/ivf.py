@@ -440,6 +440,47 @@ class IvfDeviceIndex:
         self._epochs_host[slots] = epochs
         self._vecs_host[slots] = vectors
 
+    def upsert_bulk_device(
+        self,
+        lo: int,
+        hi: int,
+        rows_dev: torch.Tensor,  # [hi-lo, D] f32 on this engine's device (unnormalized)
+        rows_host: np.ndarray,  # [hi-lo, D] f32 host copy of the same rows
+    ) -> None:
+        """Bulk path for contiguous fresh slots [lo, hi) whose rows are on
+        the device already (the JAX engine's upsert_bulk_device): the block
+        lands in the delta at positions equal to its slots, and the next
+        rebuild clusters it into the main region."""
+        n = int(hi) - int(lo)
+        if n <= 0:
+            return
+        self._reserve(hi - 1)
+        if self._valid_host[lo:hi].any():
+            raise ValueError("bulk device ingest requires fresh slots")
+        if (self._delta_pos2slot_host[lo:hi] != -1).any():
+            # positions double as slots here: an occupied position in
+            # [lo, hi) belongs to another slot
+            raise ValueError("bulk device ingest block overlaps occupied delta positions")
+        if self._delta_free.size:
+            # free-listed positions would alias the contiguous block
+            self._delta_free = self._delta_free[(self._delta_free < lo) | (self._delta_free >= hi)]
+        self._delta.upsert_bulk_device(lo, hi, rows_dev, rows_host)
+        self._delta_next = max(self._delta_next, int(hi))
+        self._sync_delta_pos2slot()
+        self._delta_pos2slot_host[lo:hi] = np.arange(lo, hi)
+        self._delta_pos2slot[lo:hi] = torch.arange(lo, hi, dtype=torch.int32, device=self.device)
+        if self._build is not None:
+            self._build["dirty"].update(range(lo, hi))
+        self._region[lo:hi] = _DELTA
+        self._pos[lo:hi] = np.arange(lo, hi)
+        self._valid_host[lo:hi] = True
+        self._epochs_host[lo:hi] = 0
+        rh = np.asarray(rows_host, dtype=np.float32)
+        if self.space_type is SpaceType.COSINE:
+            rh = normalize_rows(rh)
+        self._vecs_host[lo:hi] = rh[:, : self.dimensions]
+        self._live += n
+
     def remove_batch(self, slots: np.ndarray) -> None:
         slots = np.asarray(slots, dtype=np.int64)
         slots = np.unique(slots[slots < self.capacity])  # dupes would
