@@ -19,8 +19,8 @@ vector_store_tpu_torch.run.build_service on torch.device("cpu"):
   port's, each regime in turn: keys equal, distances within 1e-6;
 - local indexes under the engine kinds that serve only global indexes
   (graph, ivf-sharded, graph-sharded) take the flat engine and answer 200;
-  a global index under the graph kind takes the graph engine and answers
-  200, under the sharded kinds (not ported) 500 naming its ROADMAP entry.
+  a global index under those kinds takes the graph engine or the sharded
+  engine of the kind and answers 200.
 """
 
 import asyncio
@@ -298,6 +298,7 @@ async def test_filtered_regimes_answer_like_jax_service():
 async def test_local_index_served_under_unported_engine_kinds(kind):
     from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
     from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
+    from vector_store_tpu_torch.parallel.serving import ShardedGraphServingEngine, ShardedIvfServingEngine
 
     config = Config(monitor_indexes_interval=0.05, engine_kind=kind)
     # a local index: 4 partitions x 5 rows
@@ -325,8 +326,8 @@ async def test_local_index_served_under_unported_engine_kinds(kind):
     finally:
         await client.close()
         await service.stop()
-    # a global index under the same kind: the graph engine serves it, a
-    # sharded kind is not ported
+    # a global index under the same kind: the graph or sharded engine
+    # serves it
     db = labelled_db(RNG.normal(size=(10, 4)).astype(np.float32), np.zeros(10, np.int64))
     service, client = await start(db, config=config)
     try:
@@ -337,17 +338,13 @@ async def test_local_index_served_under_unported_engine_kinds(kind):
             assert asyncio.get_event_loop().time() < deadline
             await asyncio.sleep(0.05)
         body = {"vector": [1.0, 0, 0, 0], "limit": 1, "filter": bucket_filter(0)}
-        if kind == "graph":
-            assert isinstance(entry.actor.engine, GraphDeviceIndex)
-            await wait_serving(client, 10)
-            resp = await client.post("/api/v1/indexes/ks/idx/ann", json=body)
-            assert resp.status == 200, await resp.text()
-            assert len((await resp.json())["primary_keys"]["pk"]) == 1
-            return
-        assert entry.actor.engine is None
+        engine_cls = {"graph": GraphDeviceIndex, "ivf-sharded": ShardedIvfServingEngine,
+                      "graph-sharded": ShardedGraphServingEngine}[kind]
+        assert isinstance(entry.actor.engine, engine_cls)
+        await wait_serving(client, 10)
         resp = await client.post("/api/v1/indexes/ks/idx/ann", json=body)
-        text = await resp.text()
-        assert resp.status == 500 and "not ported yet" in text and "ROADMAP" in text, text
+        assert resp.status == 200, await resp.text()
+        assert len((await resp.json())["primary_keys"]["pk"]) == 1
     finally:
         await client.close()
         await service.stop()

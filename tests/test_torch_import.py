@@ -1,6 +1,7 @@
 """The port stands alone: its serving stack, its own fake DB, the engines
-and ops, the stage-ablation script, the bench programs (benchkit) and the
-chip smoke script load in a fresh interpreter without jax and without any
+and ops, the sharded engines (parallel) and their scale gate, the
+stage-ablation script, the bench programs (benchkit) and the chip smoke
+script load in a fresh interpreter without jax and without any
 module of the JAX package. (A subprocess, because this test process
 imported jax in conftest.)
 
@@ -78,6 +79,7 @@ COPIED = (
     "benchkit/load.py",
     "benchkit/fts_bench.py",
     "benchkit/synth.py",
+    "service/engine.py",
 )
 
 # copy -> the original's top-level definitions the copy leaves out: the
@@ -90,14 +92,17 @@ REMOVED = {
 # copy -> the only lines (on either side) where a copy may differ from its
 # rewritten original: the package constants live in the port's own
 # __init__.py, the native loader builds into the port's _build/ directory,
-# never into the JAX package's native/, and the OpenSearch engine imports
-# requests where it opens a session, not when the module is imported
+# never into the JAX package's native/, the OpenSearch engine imports
+# requests where it opens a session, not when the module is imported, and
+# the engine registry hands its actors the service's torch device
 ALLOWED = {
     "engine/opensearch.py": {
         "import requests",
         "import requests  # where a session opens: importing the port needs no requests",
     },
     "http/openapi.py": {"import vector_store_tpu", "import vector_store_tpu_torch"},
+    "service/engine.py": {"import torch", "", "*,", "device: torch.device,", "self.device = device",
+                          "device=self.device,"},
     "native/__init__.py": {
         "import vector_store_tpu",
         "import vector_store_tpu_torch",
@@ -127,9 +132,12 @@ ALLOWED = {
         "vector_store_tpu_torch.benchkit.http_bench, vector_store_tpu_torch.benchkit.pipeline, "
         "vector_store_tpu_torch.benchkit.harness, vector_store_tpu_torch.benchkit.load, "
         "vector_store_tpu_torch.benchkit.fts_bench",
+        "vector_store_tpu_torch.parallel, vector_store_tpu_torch.parallel.sharded, "
+        "vector_store_tpu_torch.parallel.ivf_sharded, vector_store_tpu_torch.parallel.graph_sharded, "
+        "vector_store_tpu_torch.parallel.serving, vector_store_tpu_torch.bench.sharded_gate",
     ],
     ids=["serving-stack", "engines-and-ops", "chip-smoke", "stage-ablation", "scan-ablation", "scaled-serving",
-         "benchkit"],
+         "benchkit", "parallel"],
 )
 def test_no_jax_in_sys_modules(modules):
     # requests too: the OpenSearch engine imports it only to open a session
@@ -195,9 +203,10 @@ def test_copied_modules_are_listed():
         "__init__.py", "run.py", "engine/__init__.py", "engine/flat.py", "engine/graph.py", "engine/ivf.py",
         "http/__init__.py", "http/routes.py", "ops/__init__.py", "ops/distance.py",
         "ops/ivf.py", "ops/partition_scan.py", "ops/quantize.py", "ops/topk.py",
-        "service/__init__.py", "service/engine.py", "service/ipc.py", "service/memory.py",
+        "service/__init__.py", "service/ipc.py", "service/memory.py",
         "service/vs_index.py", "benchkit/scale.py", "benchkit/suite.py", "benchkit/http_bench.py",
-        "benchkit/pipeline.py",
+        "benchkit/pipeline.py", "parallel/__init__.py", "parallel/sharded.py", "parallel/ivf_sharded.py",
+        "parallel/graph_sharded.py", "parallel/serving.py",
     }
     assert twins - rewrites == set(COPIED)
 

@@ -182,9 +182,8 @@ async def test_frontends_answer_as_the_in_process_service(batch, monkeypatch):
     and without VECTOR_STORE_FRONTEND_BATCH) and through the port's
     in-process service answer alike: keys in the same order, distances
     within 1e-6, the same errors; /api/v1/info, a filtered request, the
-    index list and status too, and a second index under an engine the
-    port does not serve (the actor's NotImplementedError reaches the
-    client as the same 500)."""
+    index list and status too, and a second index under a sharded engine
+    (the actor's non-pipelined path) answers the same through the IPC."""
     monkeypatch.setenv("VECTOR_STORE_FRONTEND_BATCH", batch)
     n, dims = 48, 8
     rng = np.random.default_rng(31)
@@ -233,8 +232,8 @@ async def test_frontends_answer_as_the_in_process_service(batch, monkeypatch):
     assert [status for status, _ in want[len(queries) + 4 : len(queries) + 7]] == [400, 404, 400]
     assert want[len(queries)][1]["primary_keys"]["pk"][0] == 0
 
-    # an index the port cannot serve answers the same 500 through the IPC
-    async def unsupported(start):
+    # an index on a sharded engine answers the same through the IPC
+    async def sharded(start):
         port = free_port()
         config = Config(uri=f"127.0.0.1:{port}", monitor_indexes_interval=0.05, engine_kind="ivf-sharded")
         service = await start(seeded_db(vecs[:4]), config)
@@ -259,9 +258,9 @@ async def test_frontends_answer_as_the_in_process_service(batch, monkeypatch):
         finally:
             await service.stop()
 
-    want = await unsupported(lambda db, config: serve(db, config, device=CPU))
-    got = await unsupported(lambda db, config: serve_scaled(db, config, workers=1, device=CPU))
-    assert [status for status, _ in want] == [500, 500] and "not ported yet" in want[0][1]
+    want = await sharded(lambda db, config: serve(db, config, device=CPU))
+    got = await sharded(lambda db, config: serve_scaled(db, config, workers=1, device=CPU))
+    assert [status for status, _ in want] == [200, 200] and want[0][1]["primary_keys"]["pk"] == [0]
     _same(got, want)
     assert all(not p.is_alive() for p in scaled.frontends)
 
@@ -282,6 +281,15 @@ async def test_frontends_see_no_gpu(monkeypatch):
         assert len(service.frontends) == WORKERS
         for proc in service.frontends:
             assert proc.is_alive() and proc.pid != os.getpid()
+            # until the child has exec'd its interpreter, /proc shows the
+            # environment block the parent started with
+            deadline = asyncio.get_event_loop().time() + 30
+            while True:
+                with open(f"/proc/{proc.pid}/cmdline", "rb") as f:
+                    if b"spawn_main" in f.read():
+                        break
+                assert asyncio.get_event_loop().time() < deadline, "a frontend never started"
+                await asyncio.sleep(0.01)
             with open(f"/proc/{proc.pid}/environ", "rb") as f:
                 env = dict(
                     item.split(b"=", 1) for item in f.read().split(b"\0") if b"=" in item

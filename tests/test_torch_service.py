@@ -4,9 +4,10 @@ Both services are seeded with the same FakeDb contents (100 rows in 3-d,
 one default index: COSINE, F32, global) and served on local ports; the
 same ANN requests must return the same primary keys with distances within
 1e-6. A self-query returns distance 0.0, a CDC upsert becomes searchable,
-the graph engine serves a global index under ``engine_kind="graph"``, and
-an engine kind the port does not serve yet (a sharded engine, for a global
-index) answers with its NotImplementedError instead of another engine.
+the graph engine serves a global index under ``engine_kind="graph"``, the
+sharded engines serve a global B1 index as the JAX service does, and an
+engine kind the factory does not name is served by the flat engine, as
+in the JAX service.
 
 A local (per-partition) index is served like the JAX service serves it:
 4 partitions x 5 rows with a (pk, ck) primary key, the layout of
@@ -160,11 +161,13 @@ async def test_global_i8_index_serves_like_jax_service():
 
 # every storage kind is served (B1 and local indexes by the flat engine:
 # tests/test_torch_openapi_quantization.py); a global B1 index under the
-# graph engine too; the sharded engines are not ported, and a global index
-# under them is refused
+# graph engine too, and under the sharded engines as the JAX service
+# serves it (the same statuses, keys and distances)
 @pytest.mark.parametrize("engine_kind", ["graph", "ivf-sharded", "graph-sharded"])
 async def test_unported_index_kinds_answer_not_implemented(engine_kind):
+    from vector_store_tpu.run import serve as jax_serve
     from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
+    from vector_store_tpu_torch.parallel.serving import ShardedGraphServingEngine, ShardedIvfServingEngine
     from vector_store_tpu_torch.run import serve
 
     vecs = np.random.default_rng(6).normal(size=(10, DIMS)).astype(np.float32)
@@ -172,32 +175,63 @@ async def test_unported_index_kinds_answer_not_implemented(engine_kind):
         serve, seeded_db(vecs, quantization=port_types.Quantization.B1), engine_kind=engine_kind,
         device=torch.device("cpu"),
     )
+    jax_svc = None
     try:
         async with aiohttp.ClientSession() as http:
-            deadline = asyncio.get_running_loop().time() + 10
-            while (entry := svc.indexes.get_vs(("ks", "idx"))) is None or (
-                entry.status is not IndexStatus.SERVING
-            ):
-                assert asyncio.get_running_loop().time() < deadline
-                await asyncio.sleep(0.05)
-            actor = entry.actor
+            await wait_count(http, base, len(vecs))
+            actor = svc.indexes.get_vs(("ks", "idx")).actor
             # a filtered query reaches the actor as well
             restrict = {"restrictions": [{"type": "==", "lhs": "pk", "rhs": 0}], "allow_filtering": True}
-            if engine_kind == "graph":  # ported: the graph engine serves it
-                assert isinstance(actor.engine, GraphDeviceIndex) and actor.unsupported is None
-                await wait_count(http, base, len(vecs))
+            if engine_kind == "graph":  # the graph engine serves it
+                assert isinstance(actor.engine, GraphDeviceIndex)
                 status, body = await ann(http, base, vecs[0], 1, filter=restrict)
                 assert status == 200 and body["primary_keys"]["pk"] == [0], body
                 status, body = await ann(http, base, vecs[3], 1)
                 assert status == 200 and body["primary_keys"]["pk"] == [3], body
                 return
-            assert actor.engine is None and isinstance(actor.unsupported, NotImplementedError)
-            status, body = await ann(http, base, vecs[0], 1, filter=restrict)
-            assert status == 500 and "not ported yet" in body and "ROADMAP" in body
-            async with http.get(f"{base}/status") as resp:
-                assert resp.status == 500 and "ROADMAP" in await resp.text()
+            engine_cls = ShardedIvfServingEngine if engine_kind == "ivf-sharded" else ShardedGraphServingEngine
+            assert isinstance(actor.engine, engine_cls)
+            jax_svc, jax_base = await start(
+                jax_serve, seeded_db(vecs, JAX, quantization=jax_types.Quantization.B1), JAX,
+                engine_kind=engine_kind,
+            )
+            await wait_count(http, jax_base, len(vecs))
+            for q, extra in ((vecs[0], {"filter": restrict}), (vecs[3], {}), (vecs[5], {}), (vecs[8], {})):
+                want = await ann(http, jax_base, q, 3, **extra)
+                got = await ann(http, base, q, 3, **extra)
+                assert want[0] == 200 and got == want, (got, want)
     finally:
         await svc.stop()
+        if jax_svc is not None:
+            await jax_svc.stop()
+
+
+async def test_unknown_engine_kind_serves_like_jax_service():
+    """An engine kind the factory does not name is served by the flat
+    engine, as the JAX factory's fall-through serves it."""
+    from vector_store_tpu.run import serve as jax_serve
+    from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
+    from vector_store_tpu_torch.run import serve
+
+    rng = np.random.default_rng(12)
+    vecs = rng.normal(size=(N, DIMS)).astype(np.float32)
+    queries = rng.normal(size=(8, DIMS)).astype(np.float32)
+    jax_svc, jax_base = await start(jax_serve, seeded_db(vecs, JAX), JAX, engine_kind="hnsw")
+    port_svc, base = await start(serve, seeded_db(vecs), engine_kind="hnsw", device=torch.device("cpu"))
+    try:
+        async with aiohttp.ClientSession() as http:
+            await wait_count(http, jax_base, N)
+            await wait_count(http, base, N)
+            assert isinstance(port_svc.indexes.get_vs(("ks", "idx")).actor.engine, FlatDeviceIndex)
+            for q in queries:
+                _, want = await ann(http, jax_base, q, 5)
+                status, got = await ann(http, base, q, 5)
+                assert status == 200, got
+                assert got["primary_keys"] == want["primary_keys"]
+                np.testing.assert_allclose(got["distances"], want["distances"], rtol=0, atol=1e-6)
+    finally:
+        await port_svc.stop()
+        await jax_svc.stop()
 
 
 N_PK, N_CK, LOCAL_DIMS = 4, 5, 4
@@ -256,7 +290,7 @@ async def test_local_index_serves_like_jax_service():
             await wait_count(http, jax_base, n)
             await wait_count(http, base, n)
             actor = port_svc.indexes.get_vs(("ks", "idx")).actor
-            assert actor.unsupported is None and actor.engine._part_rows_host is not None
+            assert actor.engine._part_rows_host is not None
             for i, q in enumerate(queries):
                 pk, limit = i % N_PK, (3, 7)[i % 2]  # 7: more than the partition holds
                 _, want = await ann(http, jax_base, q, limit, **in_partition(pk))

@@ -2,7 +2,8 @@
 define their own enums (``core.types``), so a test gives each side its own
 member, mapped by class and member name; and a JAX engine's state is
 carried into the port's with ``load_state``: ``jax_state`` of an IVF engine,
-``jax_flat_state`` of a flat one, ``jax_graph_state`` of a graph one."""
+``jax_flat_state`` of a flat one, ``jax_graph_state`` of a graph one, and
+``jax_sharded_*_state`` of the sharded indexes."""
 
 import numpy as np
 
@@ -92,4 +93,41 @@ def jax_graph_state(g, vecs_host=None) -> dict:
         "_refine_cursor": g._refine_cursor,
         "_last_refined_nodes": g._last_refined_nodes,
         "_rng": g._rng.bit_generator.state,
+    }
+
+
+def jax_sharded_flat_state(j) -> dict:
+    """The global arrays of a JAX ShardedFlatIndex that the port's
+    ``ShardedFlatIndex.load_state`` takes, as numpy."""
+    return {name: np.asarray(getattr(j, name)) for name in ("vectors", "aux", "valid", "epochs")}
+
+
+def jax_sharded_ivf_state(j) -> dict:
+    """The state of a JAX ShardedIvfIndex that the port's
+    ``ShardedIvfIndex.load_state`` takes: the global arrays as numpy, the
+    host dicts, and the delta's arrays and maps."""
+    built = j.main_vecs is not None
+    return {
+        "main_vecs": np.asarray(j.main_vecs) if built else None,
+        "main_paux": np.asarray(j.main_paux) if built else None,
+        "main_pos2slot": np.asarray(j.main_pos2slot) if built else None,
+        "centroids": np.asarray(j.centroids) if built else None,
+        "nlist": j.nlist,
+        "cmax": j.cmax,
+        "_vecs_host": j._vecs_host,
+        "_epochs_host": j._epochs_host,
+        "_pos_of_slot": j._pos_of_slot,
+        "delta": jax_sharded_flat_state(j._delta),
+        "_delta_pos_of_slot": j._delta_pos_of_slot,
+        "_delta_slot_of_pos": j._delta_slot_of_pos,
+        "_delta_next": j._delta_next,
+    }
+
+
+def jax_sharded_graph_state(j) -> dict:
+    """The global arrays of a JAX ShardedGraphIndex that the port's
+    ``ShardedGraphIndex.load_state`` takes, as numpy."""
+    return {
+        name: np.asarray(getattr(j, name))
+        for name in ("vectors", "aux", "valid", "epochs", "adjacency", "entries")
     }

@@ -370,14 +370,20 @@ def ivf_candidates(
     s: int,
     cmax: int,
     spherical: bool,
+    probes: torch.Tensor | None = None,  # [B, nprobe] precomputed (sharded path)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Probe -> regroup -> grouped scan -> merge. Returns (rank [B, k] f32
     ascending, pos [B, k] i32 cluster-major positions or -1, dropped [B]
     i32: live (query, cluster) pairs that lost their cluster's slot race
-    and were not scanned; the engine re-dispatches those queries)."""
+    and were not scanned; the engine re-dispatches those queries).
+
+    Given ``probes`` (cluster ids local to ``vectors``, the sentinel >=
+    nlist for a pair another shard owns), the probe is skipped and
+    ``centroids`` and ``nprobe`` are not read."""
     nlist = vectors.shape[0] // cmax
-    nprobe = min(nprobe, nlist)
-    probes = ivf_probe(centroids, queries, q_live, nprobe=nprobe, spherical=spherical)
+    if probes is None:
+        nprobe = min(nprobe, nlist)
+        probes = ivf_probe(centroids, queries, q_live, nprobe=nprobe, spherical=spherical)
     qtab, filled, row_of_pair = regroup_pairs(probes, nlist=nlist, s=s)
     dropped = ((row_of_pair < 0) & (probes < nlist)).sum(dim=1, dtype=torch.int32)
     dropped = torch.where(q_live, dropped, 0)

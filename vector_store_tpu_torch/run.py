@@ -152,6 +152,7 @@ async def build_service(
         metrics=metrics,
         internals=internals,
         engine_kind=engine_kind,
+        shards=config.shards,
         device=device,
     )
     monitor = MonitorIndexes(

@@ -39,6 +39,7 @@ class Engine:
         metrics=None,
         internals=None,
         engine_kind: str = "auto",
+        shards: int = 0,
         *,
         device: torch.device,
     ) -> None:
@@ -49,6 +50,7 @@ class Engine:
         self.metrics = metrics
         self.internals = internals
         self.engine_kind = engine_kind
+        self.shards = shards
         self.device = device
         self._task: asyncio.Task | None = None
         self._stopped = False
@@ -86,6 +88,7 @@ class Engine:
                 memory=self.memory,
                 metrics=self.metrics,
                 engine_kind=self.engine_kind,
+                shards=self.shards,
                 internals=self.internals,
                 device=self.device,
             )

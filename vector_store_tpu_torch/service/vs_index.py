@@ -37,9 +37,12 @@ engine; and a local (per-partition) index of any storage gets the flat
 engine whatever the kind says (its partition directory serves a query
 naming its partition). ``sim[:search:add-remove:reserve]`` and
 ``opensearch:<uri>`` give every index the host engine of that name, as in
-the JAX package. An engine kind not ported yet (a sharded one on a global
-index) raises NotImplementedError naming its ROADMAP.md entry; no other
-engine stands in.
+the JAX package. ``ivf-sharded`` and ``graph-sharded`` give a global
+index of any storage the sharded engines (parallel/serving.py) over a
+mesh of ``shards`` shards (0: one a card; on the CPU, one); and an engine
+kind the factory does not name gets the flat engine, as in the JAX
+package. The sharded engines have no search_begin: they take the legacy
+path, with their whole-engine maintain() run like the graph engine's.
 
 The graph engine has no sliced maintenance API (``maintain_pending``): its
 delta merges and refinement slices run as the JAX actor runs them, one
@@ -85,6 +88,8 @@ from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
 from vector_store_tpu_torch.engine.ivf import AllowMaskHandle, IvfDeviceIndex, ivf_supports
 from vector_store_tpu_torch.engine.opensearch import OpenSearchIndex
 from vector_store_tpu_torch.engine.simulator import SimulatorIndex, parse_delays
+from vector_store_tpu_torch.parallel import make_mesh
+from vector_store_tpu_torch.parallel.serving import ShardedGraphServingEngine, ShardedIvfServingEngine
 
 logger = logging.getLogger(__name__)
 
@@ -121,11 +126,13 @@ class DimensionMismatch(ValueError):
 
 
 def make_engine(
-    metadata: IndexMetadata, engine_kind: str, device: torch.device
-) -> IvfDeviceIndex | FlatDeviceIndex | GraphDeviceIndex | SimulatorIndex | OpenSearchIndex:
+    metadata: IndexMetadata, engine_kind: str, device: torch.device, shards: int = 0
+) -> (
+    IvfDeviceIndex | FlatDeviceIndex | GraphDeviceIndex | ShardedIvfServingEngine
+    | ShardedGraphServingEngine | SimulatorIndex | OpenSearchIndex
+):
     """The engine for one index (a host engine for the ``sim`` and
-    ``opensearch:`` kinds), or NotImplementedError for what the port does
-    not serve yet."""
+    ``opensearch:`` kinds); ``shards`` sizes a sharded engine's mesh."""
     vs = metadata.vs_options
     is_local = not metadata.partitioning.is_global
     if is_local and (engine_kind in ("auto", "ivf", "graph") or engine_kind.endswith("-sharded")):
@@ -138,10 +145,8 @@ def make_engine(
         engine_kind = "flat"
     if engine_kind.startswith("sim") or engine_kind.startswith("opensearch:"):
         return _host_engine(metadata, engine_kind)
-    if engine_kind not in ("auto", "ivf", "flat", "graph"):
-        raise NotImplementedError(
-            f"engine {engine_kind!r} is not ported yet (ROADMAP.md, port queue: sharded engines)"
-        )
+    if engine_kind.endswith("-sharded"):
+        return _sharded_engine(metadata, engine_kind, device, shards)
     rescoring = vs.rescoring is not False
     oversample = None if vs.oversampling is None else math.ceil(vs.oversampling)
     if engine_kind == "graph":
@@ -156,25 +161,63 @@ def make_engine(
             oversample=oversample,
             rescoring=rescoring,
         )
-    if engine_kind == "flat":
-        return FlatDeviceIndex(
+    if engine_kind in ("auto", "ivf"):
+        # expansion_search plays the nprobe role (reference ef_search 64)
+        return IvfDeviceIndex(
             int(vs.dimensions),
             space_type=vs.space_type,
             quantization=vs.quantization,
             device=device,
-            reserve_increment=LOCAL_RESERVE_INCREMENT if is_local else GLOBAL_RESERVE_INCREMENT,
-            **({} if oversample is None else {"oversample": oversample}),
+            nprobe=max(8, int(vs.expansion_search) // 2),
+            oversample=oversample,
             rescoring=rescoring,
         )
-    # expansion_search plays the nprobe role (reference ef_search 64)
-    return IvfDeviceIndex(
+    # "flat", and a kind the factory does not name (the JAX factory's
+    # fall-through)
+    return FlatDeviceIndex(
         int(vs.dimensions),
         space_type=vs.space_type,
         quantization=vs.quantization,
         device=device,
-        nprobe=max(8, int(vs.expansion_search) // 2),
-        oversample=oversample,
+        reserve_increment=LOCAL_RESERVE_INCREMENT if is_local else GLOBAL_RESERVE_INCREMENT,
+        **({} if oversample is None else {"oversample": oversample}),
         rescoring=rescoring,
+    )
+
+
+def _sharded_engine(
+    metadata: IndexMetadata, engine_kind: str, device: torch.device, shards: int
+) -> ShardedIvfServingEngine | ShardedGraphServingEngine:
+    """A global index sharded over a mesh of ``shards`` shards (0: one a
+    card): on CUDA over every card, shard i on card i % cards; on the CPU
+    every shard on the one CPU device."""
+    vs = metadata.vs_options
+    if vs.oversampling is not None or vs.rescoring is not None:
+        logger.warning(
+            "index %s: oversampling/rescoring options are not supported by "
+            "engine %r and were ignored", metadata.key, engine_kind,
+        )
+    if device.type == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    mesh = make_mesh(shards or len(devices), data=1, devices=devices)
+    if engine_kind == "graph-sharded":
+        return ShardedGraphServingEngine(
+            mesh,
+            int(vs.dimensions),
+            space_type=vs.space_type,
+            quantization=vs.quantization,
+            connectivity=int(vs.connectivity),
+            expansion_add=int(vs.expansion_add),
+            expansion_search=int(vs.expansion_search),
+        )
+    return ShardedIvfServingEngine(
+        mesh,
+        int(vs.dimensions),
+        space_type=vs.space_type,
+        quantization=vs.quantization,
+        nprobe=max(8, int(vs.expansion_search) // 2),
     )
 
 
@@ -238,6 +281,7 @@ class VsIndexActor:
         metrics=None,  # Metrics | None
         engine_kind: str = "auto",
         internals=None,  # Internals | None (debug counters)
+        shards: int = 0,  # mesh size of a sharded engine (0: one a card)
         *,
         device: torch.device,
     ) -> None:
@@ -251,20 +295,12 @@ class VsIndexActor:
         self.space_type = vs.space_type
         self.quantization = vs.quantization
         self.is_local = not metadata.partitioning.is_global
-        # an index this port cannot serve stays registered and answers every
-        # request with the NotImplementedError (the routes report it)
-        self.unsupported: NotImplementedError | None = None
-        self.engine = None
-        try:
-            self.engine = make_engine(metadata, engine_kind, device)
-        except NotImplementedError as exc:
-            logger.error("index %s cannot be served: %s", metadata.key, exc)
-            self.unsupported = exc
+        self.engine = make_engine(metadata, engine_kind, device, shards)
         self.engine_kind = engine_kind
         if self.memory is not None and hasattr(self.engine, "device_bytes"):
             self.memory.register_engine(self.engine)
-        # engines without search_begin (the host engines) take the legacy
-        # one-call-a-batch path
+        # engines without search_begin (the host and sharded engines) take
+        # the legacy one-call-a-batch path
         self._pipelined = hasattr(self.engine, "search_begin")
 
         self._search_queue: asyncio.Queue = asyncio.Queue()
@@ -300,8 +336,7 @@ class VsIndexActor:
     # -- lifecycle ------------------------------------------------------------
 
     def start(self) -> None:
-        if self.engine is not None:
-            self._task = asyncio.get_running_loop().create_task(self._run())
+        self._task = asyncio.get_running_loop().create_task(self._run())
 
     async def stop(self) -> None:
         self._stopped = True
@@ -328,7 +363,7 @@ class VsIndexActor:
         self, vector: list[float], restrictions: list[Restriction], limit: int
     ) -> list[tuple[PrimaryKey, Distance]]:
         partition = None
-        if self.is_local and self.unsupported is None:
+        if self.is_local:
             routed = self.table.partition_id(self.metadata.key, restrictions)
             if routed is None:
                 # unknown partition -> empty result (the reference resolves
@@ -338,14 +373,10 @@ class VsIndexActor:
         return await self._submit(vector, limit, restrictions, partition)
 
     async def count(self) -> int:
-        if self.unsupported is not None:
-            raise self.unsupported
         return self.engine.size
 
     def apply_operations(self, ops: list[Operation]) -> None:
         """Called by the monitor_items pump."""
-        if self.engine is None:
-            return  # unsupported index: nothing to apply the rows to
         if not self._modify_queue:
             self._modify_oldest = time.monotonic()
         self._modify_queue.extend(ops)
@@ -358,8 +389,6 @@ class VsIndexActor:
     # -- scheduling -------------------------------------------------------------
 
     async def _submit(self, vector, limit, restrictions, partition=None):
-        if self.unsupported is not None:
-            raise self.unsupported
         v = np.asarray(vector, dtype=np.float32)
         if v.ndim != 1 or v.shape[0] != self.dimensions:
             raise DimensionMismatch(
@@ -566,6 +595,10 @@ class VsIndexActor:
                     pass
             if getter in done:
                 self._search_queue.put_nowait(getter.result())
+            if waiter in done:
+                # a wake-up may have made maintenance due (the JAX actor
+                # offers every idle wake to maintain())
+                whole_due = whole_maintain
 
     def _drain_searches(self) -> list[_SearchRequest]:
         batch: list[_SearchRequest] = []
