@@ -162,8 +162,8 @@ failure:
    scripts/sharded_scale_gate.py: 65,536 rows through the actor over 8
    shards) in a process of its own must pass its gate; its JSON line is
    printed and its launches added to the kernels line.
-15. sharded graph: graph-1000k's shape (SHARDED_GRAPH_ROWS = 1,000,000 x
-   128 rows in 512 clusters, EUCLIDEAN, BF16, the index's default graph
+15. sharded graph: graph-1000k's shape cut to SHARDED_GRAPH_ROWS = 524,288
+   x 128 rows in 512 clusters, EUCLIDEAN, BF16, the index's default graph
    options) under ``engine_kind="graph-sharded"`` over 4 shards: each
    build's rows and seconds, recall@10 over 512 held queries against
    exact f32 (printed, not gated: the reference's per-shard graphs keep
@@ -172,6 +172,27 @@ failure:
    BF16 rows' own distance); a CDC insert found first through the host
    delta; one beam batch on every shard at B 64 (CUDA events) and the
    kernels it launches (torch.profiler).
+16. IVF recovery: phase 5's rows (kept) in an IvfDeviceIndex driven
+   directly at the engine's defaults (EUCLIDEAN, F32, min_build 65,536,
+   nprobe 32), the scans' launch counts reset before and read after:
+   the build (seconds, nlist, cmax); a skewed batch (copies of one stored
+   row + 0.01) at 4096 copies and at the slot cap S_CAP_SLOTS / nlist:
+   pairs dropped, s_boost raised, every top-1 the exact f32 oracle's, the
+   cap's batch drop-free once escalated and again; kernel 2 at that
+   escalated budget against its plain version and bound;
+   search_exact_host at k 50 against the on-card oracle for 8 queries; 20
+   rounds of remove and re-add of 8,192 rows (the delta's high-water mark
+   and capacity fixed, every row found first at 0 with its newest
+   epoch); 250,000 new rows and a point mass of 2,000 rows make a rebuild
+   due, which fails twice (an injected failure of the spill ingest,
+   FlatDeviceIndex.upsert_bulk_device, then of the swap's tombstone
+   write) with a mutation written mid-build each time: the previous main
+   region restored, the size unchanged, both mutations found first with
+   their epochs, both kernels launched; then a clean budgeted rebuild with
+   50,000 rows written mid-build, which re-enter in chunks of at most
+   REENTER_CHUNK while a newer write and a delete land between chunks
+   (the newer write wins, the deleted row never answers); recall@10 of
+   phase 5's 1024 queries against exact f32 over the live rows (>= 0.90).
    The smoke's total wall time is printed last of all phases.
 
 Phase 3 also holds both scans under a slot filter against their plain
@@ -184,8 +205,10 @@ the kernels (the F32 fused and grouped scans' launches are phase 5's and
 phase 12's together, every kernel's count includes phase 13's processes
 and the sharded gate's, kernel 2's includes phase 14's, and the
 ``grouped_scan_sharded`` entry is kernel 2 at one shard's shape with
-phase 14's launches), the nvidia-smi name/power-limit line, and
-{"ok": true, "device": {...}}.
+phase 14's launches; the F32 scans' counts include phase 16's, and the
+``grouped_scan_escalated`` entry is kernel 2 at phase 16's escalated slot
+budget with phase 16's launches), the nvidia-smi name/power-limit line,
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -237,10 +260,11 @@ GRAPH_SELF, GRAPH_CDC = 256, 256  # self-queries; CDC inserts, checked in the de
 GRAPH_FOUND_MIN = 0.75
 # the sharded engines (phases 14-15): shards of one index on the card (one
 # a card where more are present), the recall bar of the JAX package's
-# sharded gate (scripts/sharded_scale_gate.py:163), phase 15's rows
+# sharded gate (scripts/sharded_scale_gate.py:163), phase 15's rows (cut
+# from graph-1000k's 1M to keep the smoke inside its time limit: PERF.md)
 SHARDS = 4
 SHARDED_RECALL_MIN = 0.95
-SHARDED_GRAPH_ROWS = 1_000_000
+SHARDED_GRAPH_ROWS = 524_288
 # the scaled service (phase 12): HTTP clients in processes of their own, the
 # requests they keep in flight in total, and each load's windows
 SCALED_CLIENTS = 2
@@ -2603,6 +2627,257 @@ async def sharded_graph_phase(device, card: str) -> None:
         await service.stop()
 
 
+def grouped_plain_chunked(q, v, a, b, s: int, cmax: int, clusters: int = 128):
+    """grouped_scan_plain over ``clusters`` clusters at a time (its one
+    product of every slot with every row of its cluster would take tens of
+    GB at the escalated budget); the rows it returns are absolute."""
+    from vector_store_tpu_torch.ops import ivf
+
+    nlist = v.shape[0] // cmax
+    ranks, rows = [], []
+    for c0 in range(0, nlist, clusters):
+        c1 = min(nlist, c0 + clusters)
+        r, p = ivf.grouped_scan_plain(
+            q[c0 * s : c1 * s], v[c0 * cmax : c1 * cmax], a[c0 * cmax : c1 * cmax], b[c0 * cmax : c1 * cmax], s, cmax
+        )
+        ranks.append(r)
+        rows.append(p + c0 * cmax)
+    return torch.cat(ranks), torch.cat(rows)
+
+
+def escalated_kernel(device, eng, query: np.ndarray, batch: int) -> dict:
+    """Phase 16: kernel 2 at the slot budget the skewed batch escalated to
+    (``batch`` copies of ``query`` probed and regrouped as the engine does
+    it) against its plain version; the kernels line's entry."""
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+
+    nl, cmax, s = eng.nlist, eng.cmax, eng._serving_s(batch)
+    qs = eng._main_queries(np.repeat(query[None, :], batch, axis=0))
+    live = torch.ones((batch,), dtype=torch.bool, device=device)
+    probes = ivf.ivf_probe(eng.centroids, qs, live, nprobe=min(eng.nprobe, nl), spherical=False)
+    qtab, filled, _ = ivf.regroup_pairs(probes, nlist=nl, s=s)
+    qg = qs[qtab].contiguous()
+    v, a, b = eng.main_vecs, eng.main_a, eng.main_b
+    rank, pos = ivf.grouped_scan(qg, v, a, b, s, cmax)
+    prank, ppos = grouped_plain_chunked(qg, v, a, b, s, cmax)
+    err = compare("grouped_scan (escalated)", rank, pos, prank, ppos, *grouped_oracle(qg, v, a, b, s, cmax))
+    del rank, pos, prank, ppos
+    entry = {"name": "grouped_scan_escalated", "route": "cuda", "source": "vector_store_tpu_torch/csrc/grouped_scan.cu",
+             "replaces": "vector_store_tpu/ops/ivf.py:467", "max_abs_err": err,
+             "ms": median_ms(lambda: ivf.grouped_scan(qg, v, a, b, s, cmax)),
+             "plain_ms": median_ms(lambda: grouped_plain_chunked(qg, v, a, b, s, cmax), reps=3),
+             "library_ms": None, "product_only_ms": median_ms(lambda: grouped_product(qg, v, s, cmax), reps=3),
+             **scan_bound(nl * cmax, nl * s, nl * s * cmax, v.shape[1], v.dtype, qg.dtype, nl * s * fs.LANES)}
+    print(f"[recovery] kernel 2 at the escalated budget (nlist {nl} x cmax {cmax}, s {s}, {int(filled.sum())} of "
+          f"{nl * s} slots filled by {batch} copies of one query): kernel {entry['ms']:.3f} ms, plain "
+          f"{entry['plain_ms']:.3f} ms, product only {entry['product_only_ms']:.3f} ms, bound "
+          f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), max |rank err| {err:.3g} (tolerance {RTOL:g} * "
+          "(1 + |r|))", flush=True)
+    return entry
+
+
+def recovery_phase(device, card: str) -> tuple[dict, dict]:
+    """Phase 16: the IVF engine's recovery paths at phase 5's shape
+    (IvfDeviceIndex driven directly, EUCLIDEAN, F32, the engine's
+    defaults). Returns kernel 2's entry at the escalated slot budget and
+    the two scans' launches over the phase (the entry's own comparison
+    launches excluded)."""
+    from vector_store_tpu_torch.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
+    from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+
+    t_phase = time.perf_counter()
+    data, queries, _ = phase5_rows(np.random.default_rng(SEED + 1), device)
+    rng = np.random.default_rng(SEED + 16)
+    n = SERVICE_ROWS
+    fs.fused_scan.launches = 0
+    ivf.grouped_scan.launches = 0
+    eng = IvfDeviceIndex(DIMS, SpaceType.EUCLIDEAN, Quantization.F32, device=device)
+
+    def found_first(vecs: np.ndarray, slots, epoch: int, what: str) -> None:
+        """Each row's vector finds its slot first, at distance 0, with its
+        newest epoch."""
+        res = eng.search(vecs, 1)
+        bad = [(int(s), r.slots[:1].tolist(), r.epochs[:1].tolist(), r.distances[:1].tolist())
+               for s, r in zip(slots, res) if not (r.slots[0] == s and r.epochs[0] == epoch and r.distances[0] <= 1e-6)]
+        check(not bad, f"{what}: {len(bad)} of {len(res)} rows not found first at 0 with epoch {epoch}: {bad[:3]}")
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    for lo in range(0, n, 131_072):
+        hi = min(n, lo + 131_072)
+        eng.upsert_batch(np.arange(lo, hi), np.ones(hi - lo, np.int32), data[lo:hi])
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while eng.maintain_pending() is not None:
+        eng.maintain()
+    build_s = time.perf_counter() - t0
+    print(f"[recovery] {n} rows ingested in {ingest_s:.2f} s, built in {build_s:.2f} s: nlist {eng.nlist}, cmax "
+          f"{eng.cmax}, main {eng._main_rows}, delta {eng._delta_live()}", flush=True)
+    check(eng.main_vecs is not None and eng._main_rows >= 0.8 * n, "the build left under 80% of the rows in main")
+
+    # -- 2. the skewed batch ---------------------------------------------------
+    pick = int(rng.integers(0, n))
+    q = data[pick] + np.float32(0.01)
+    oracle = int(exact_top_k(torch.from_numpy(data).to(device), torch.from_numpy(q[None, :]).to(device), 1,
+                             "EUCLIDEAN")[0, 0])
+    # the slot budget caps at min(batch, S_CAP_SLOTS / nlist): 2048 slots a
+    # cluster at nlist 2048, so a batch of 4096 copies of one query drops
+    # pairs at any budget, and the largest batch that escalates drop-free
+    # is the cap itself (the JAX engine's rule, _serving_s)
+    readings = []
+    for batch in (4096, eng.S_CAP_SLOTS // eng.nlist):
+        for _ in range(4):
+            before, s = eng.dropped_pair_queries, eng._serving_s(batch)
+            res = eng.search(np.repeat(q[None, :], batch, axis=0), K)
+            wrong = sum(r.slots[0] != oracle for r in res)
+            check(wrong == 0, f"{wrong} of {batch} skewed queries missed the exact top-1 {oracle}")
+            readings.append((batch, s, eng.dropped_pair_queries - before, eng.s_boost))
+            if eng.dropped_pair_queries == before:
+                break
+    print(f"[recovery] skewed batches of row {pick} + 0.01 (batch, s, queries re-dispatched, s_boost after): "
+          f"{readings}; every top-1 equals the exact f32 oracle's", flush=True)
+    check(readings[0][2] > 0 and readings[0][3] > 1, "the skewed batch dropped no pair or did not escalate")
+    drop_free = readings[-1]
+    check(drop_free[2] == 0, f"the escalated budget still drops pairs: {readings}")
+    again = eng.dropped_pair_queries
+    eng.search(np.repeat(q[None, :], drop_free[0], axis=0), K)
+    check(eng.dropped_pair_queries == again, "the same batch again dropped pairs")
+    counts = (fs.fused_scan.launches, ivf.grouped_scan.launches)
+    entry = escalated_kernel(device, eng, q, drop_free[0])
+    fs.fused_scan.launches, ivf.grouped_scan.launches = counts  # the comparison's launches do not count
+
+    # -- 3. exact host ------------------------------------------------------------
+    held = queries[:8]
+    gt = exact_top_k(torch.from_numpy(data).to(device), torch.from_numpy(held).to(device), 50, "EUCLIDEAN")
+    swaps = 0
+    for qi, want in zip(held, gt):
+        got = eng.search_exact_host(qi, 50).slots
+        if not np.array_equal(got, want):  # only rows that tie in f32 may trade places
+            d = [np.sort(((data[x].astype(np.float64) - qi) ** 2).sum(-1)) for x in (got, want)]
+            check(np.allclose(d[0], d[1], rtol=1e-6), f"search_exact_host differs from the oracle: {got} {want}")
+            swaps += int((got != want).sum())
+    print(f"[recovery] search_exact_host at k 50 equals the on-card exact f32 oracle for {len(held)} queries "
+          f"({swaps} positions of f32 ties traded)", flush=True)
+
+    # -- 4. delta churn ------------------------------------------------------------
+    t0 = time.perf_counter()
+    churn = np.sort(rng.choice(n, size=8192, replace=False))
+    eng.remove_batch(churn)  # round 0 moves them from main into the delta
+    eng.upsert_batch(churn, np.full(churn.size, 2, np.int32), data[churn])
+    high, cap0 = eng._delta_next, eng._delta.capacity
+    for r in range(20):
+        vecs = data[churn] + rng.standard_normal((churn.size, DIMS), dtype=np.float32) * np.float32(0.01)
+        eng.remove_batch(churn)
+        eng.upsert_batch(churn, np.full(churn.size, 3 + r, np.int32), vecs)
+        found_first(vecs, churn, 3 + r, f"churn round {r}")
+        check(eng._delta_next == high and eng._delta.capacity == cap0,
+              f"churn round {r} grew the delta: next {eng._delta_next} (was {high}), capacity {eng._delta.capacity}")
+    print(f"[recovery] 20 rounds of remove + re-add of {churn.size} rows in {time.perf_counter() - t0:.2f} s: the "
+          f"delta's high-water mark stayed {high}, its capacity {cap0}; every row found first at 0 with its newest "
+          "epoch", flush=True)
+
+    # -- 5. failed rebuilds --------------------------------------------------------
+    grow = n // 4  # with the churned rows, past rebuild_fraction (0.2) of the live rows
+    new = data[rng.integers(0, n, size=grow)] + rng.standard_normal((grow, DIMS), dtype=np.float32) * np.float32(0.01)
+    eng.upsert_batch(np.arange(n, n + grow), np.full(grow, 4, np.int32), new)
+    mass = np.full((2000, DIMS), 0.3, np.float32)  # one point, more rows than any cmax: the swap spills
+    eng.upsert_batch(np.arange(n + grow, n + grow + 2000), np.full(2000, 4, np.int32), mass)
+    check(eng.maintain_pending() == "start", "the new rows did not make a rebuild due")
+    size, old_main = eng.size, eng.main_vecs
+    new5, new6 = np.full((1, DIMS), -0.7, np.float32), np.full((1, DIMS), 0.7, np.float32)
+
+    def failed_rebuild(cls, name: str, slot: int, vec: np.ndarray, epoch: int) -> float:
+        t = time.perf_counter()
+        check(eng.maintain(budget=1) and eng._build is not None, "the rebuild did not start")
+        eng.upsert_batch([slot], [epoch], vec[None, :])  # a mutation mid-build
+        calls = []
+        real = getattr(cls, name)
+
+        def boom(*a, **kw):
+            calls.append(1)
+            raise RuntimeError(f"injected failure of {cls.__name__}.{name}")
+
+        setattr(cls, name, boom)
+        try:
+            while eng._build is not None:
+                if not eng.maintain(budget=1):
+                    break
+        finally:
+            setattr(cls, name, real)
+        check(len(calls) == 1 and eng._build is None, f"the injected failure fired {len(calls)} times")
+        check(eng.main_vecs is old_main and eng.size == size, "the failed rebuild did not restore the main region")
+        return time.perf_counter() - t
+
+    spill_s = failed_rebuild(FlatDeviceIndex, "upsert_bulk_device", 5, new5[0], 9)
+    swap_s = failed_rebuild(IvfDeviceIndex, "_tombstone_main", 6, new6[0], 10)
+    check(eng.build_failures == 2 and eng.maintain_pending() == "start", "the rebuild is not due again")
+    f0, g0 = fs.fused_scan.launches, ivf.grouped_scan.launches
+    found_first(new5, [5], 9, "the first mid-build mutation")
+    found_first(new6, [6], 10, "the second mid-build mutation")
+    during = {"fused_scan": fs.fused_scan.launches - f0, "grouped_scan": ivf.grouped_scan.launches - g0}
+    check(all(v > 0 for v in during.values()), f"a kernel did not launch after the restores: {during}")
+    print(f"[recovery] two failed rebuilds restored: the spill ingest ({spill_s:.2f} s) and the swap itself "
+          f"({swap_s:.2f} s); size {eng.size}, both mid-build mutations found first with their epochs; launches "
+          f"after the restores {during}", flush=True)
+
+    # -- 6. a clean rebuild, with mid-build mutations re-entering after the swap --
+    t0 = time.perf_counter()
+    check(eng.maintain(budget=1) and eng._build is not None, "the clean rebuild did not start")
+    dirty = np.sort(rng.choice(np.arange(100, n), size=50_000, replace=False))
+    moved = data[dirty] + np.float32(0.01)
+    eng.upsert_batch(dirty, np.full(dirty.size, 11, np.int32), moved)
+    while eng._build is not None:
+        check(eng.maintain(budget=1), "a slice of the clean rebuild failed")
+    build2_s = time.perf_counter() - t0
+    check(eng.main_vecs is not old_main and eng.maintain_pending() == "reenter", "the clean rebuild did not swap in")
+    chunks = []
+
+    def waiting() -> int:
+        return int((eng._valid_host & (eng._region == 0)).sum())
+
+    t0 = time.perf_counter()
+    newest = np.full((1, DIMS), -0.3, np.float32)
+    gone = int(dirty[-2])
+    while eng.maintain_pending() == "reenter":
+        before = waiting()
+        check(eng.maintain(budget=1), "a re-entry slice failed")
+        chunks.append(before - waiting())
+        if len(chunks) == 1:  # the lag window: a newer write and a delete win
+            eng.upsert_batch([int(dirty[-1])], [12], newest)
+            eng.remove_batch([gone])
+    reenter_s = time.perf_counter() - t0
+    check(max(chunks) <= eng.REENTER_CHUNK and len(chunks) >= 2, f"re-entry chunks {chunks}")
+    found_first(newest, [int(dirty[-1])], 12, "the write during re-entry")
+    sample = rng.choice(dirty.size - 2, size=256, replace=False)
+    found_first(moved[sample], dirty[sample], 11, "rows written mid-build")
+    check(all(gone not in r.slots for r in eng.search(moved[[-2]], K)), "a row removed during re-entry answered")
+    found_first(new5, [5], 9, "the first mutation after the clean rebuild")
+    print(f"[recovery] clean rebuild of {eng.size} rows in {build2_s:.2f} s (nlist {eng.nlist}, cmax {eng.cmax}); "
+          f"{dirty.size} rows written mid-build re-entered in chunks {chunks} (REENTER_CHUNK {eng.REENTER_CHUNK}) in "
+          f"{reenter_s:.2f} s; a write during re-entry found first with its epoch, a row removed then never returned",
+          flush=True)
+
+    # -- 7. end state ----------------------------------------------------------------
+    live = np.flatnonzero(eng._valid_host)
+    truth = live[exact_top_k(torch.from_numpy(eng._vecs_host[live]).to(device),
+                             torch.from_numpy(queries).to(device), K, "EUCLIDEAN")]
+    res = eng.search(queries, K)
+    recall = float(np.mean([len(set(r.slots.tolist()) & set(t.tolist())) / K for r, t in zip(res, truth)]))
+    launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan": ivf.grouped_scan.launches}
+    print(f"[recovery] recall@{K} {recall:.4f} over {len(queries)} held queries against exact f32 over the "
+          f"{live.size} live rows (phase 5's COSINE index: 0.9954 in PERF.md); launches {launches}; builds "
+          f"{sum(1 for p, _ in eng.maintain_log if p == 'swap')}, failures {eng.build_failures}; phase 16 on {card} "
+          f"in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(recall >= RECALL_MIN, f"recall@{K} {recall:.4f} < {RECALL_MIN}")
+    check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
+    entry["launches"] = launches["grouped_scan"]
+    return entry, launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
@@ -2696,6 +2971,14 @@ def main() -> None:
     t_phase = time.perf_counter()
     asyncio.run(sharded_graph_phase(device, card))
     print(f"[sharded graph] phase 15 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the IVF recovery paths")
+    escalated, recovered = recovery_phase(device, card)
+    results.append(escalated)
+    launches["grouped_scan_escalated"] = escalated["launches"]
+    for name, count in recovered.items():
+        launches[name] += count
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:
         entry["launches"] = launches[entry["name"]]

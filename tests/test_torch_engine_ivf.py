@@ -137,16 +137,19 @@ def test_own_build_recall_and_lifecycle():
     assert idx.size == n + 2000 - 1
 
 
-def test_exact_host_and_unported_paths():
+def test_exact_host_and_global_only_errors():
+    """search_exact_host ranks every live row; a search naming a partition
+    and an unsupported kind raise the JAX engine's ValueErrors (both
+    engines side by side: tests/test_torch_engine_ivf_suite_churn.py)."""
     idx = port_index(SpaceType.COSINE)
     vecs = clustered(64, D)
     idx.upsert_batch(np.arange(64), np.zeros(64, np.int32), vecs)
     res = idx.search_exact_host(vecs[3], 64)
     assert res.slots[0] == 3 and res.slots.size == 64
     assert abs(res.distances[0]) < 1e-6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="serves global indexes only"):
         idx.search(vecs[:1], 1, partitions=np.array([3]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="supports float/i8 quantizations"):
         IvfDeviceIndex(D, quantization=Quantization.B1, device=CPU)
 
 

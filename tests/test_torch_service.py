@@ -159,12 +159,12 @@ async def test_global_i8_index_serves_like_jax_service():
         await jax_svc.stop()
 
 
-# every storage kind is served (B1 and local indexes by the flat engine:
-# tests/test_torch_openapi_quantization.py); a global B1 index under the
-# graph engine too, and under the sharded engines as the JAX service
-# serves it (the same statuses, keys and distances)
+# a global B1 index under the engine kinds past the IVF engine: the graph
+# engine serves it, and the sharded engines serve it as the JAX service
+# does (the same statuses, keys and distances); the flat engine serves it
+# under the other kinds (tests/test_torch_openapi_quantization.py)
 @pytest.mark.parametrize("engine_kind", ["graph", "ivf-sharded", "graph-sharded"])
-async def test_unported_index_kinds_answer_not_implemented(engine_kind):
+async def test_b1_index_under_graph_and_sharded_kinds_serves_like_jax(engine_kind):
     from vector_store_tpu.run import serve as jax_serve
     from vector_store_tpu_torch.engine.graph import GraphDeviceIndex
     from vector_store_tpu_torch.parallel.serving import ShardedGraphServingEngine, ShardedIvfServingEngine

@@ -38,6 +38,11 @@ def jax_state(j) -> dict:
         "delta_paux": np.asarray(j._delta.paux),
         "delta_valid": np.asarray(j._delta.valid),
         "delta_epochs": np.asarray(j._delta.epochs),
+        # an I8 delta's bf16 rescore tier
+        "delta_rescore_vectors": (
+            np.asarray(j._delta.rescore_vectors.astype(np.float32)) if j._delta.rescore else None
+        ),
+        "delta_rescore_aux": np.asarray(j._delta.rescore_aux) if j._delta.rescore else None,
     }
 
 
