@@ -193,6 +193,29 @@ failure:
    REENTER_CHUNK while a newer write and a delete land between chunks
    (the newer write wins, the deleted row never answers); recall@10 of
    phase 5's 1024 queries against exact f32 over the live rows (>= 0.90).
+17. deployed entry point: phase 5's first WIRE_ROWS rows behind a fake
+   ScyllaDB node (vector_store_tpu_torch/db/cql/fake_scylla.py) in a
+   spawned process of its own, which requires a password, serves 16 ring
+   tokens, pages the token-range scan at the client's page size and keeps
+   a CDC log. The service is built in this process as run.main builds it,
+   from VECTOR_STORE_* variables (the CQL endpoint with its username and
+   password file, HTTPS, the mTLS endpoint, fine CDC intervals, a 1 s
+   certificate check): ConfigManager, run.make_scylla_db and run.serve with
+   no device argument, so it takes the card. Discovery -> SERVING seconds
+   and the bootstrap rate over the wire (count == rows, every row served
+   once); the build; recall@10 over HTTPS at 64 in flight (>= 0.90), QPS
+   and p50 beside phase 5's; 16 self-queries at distance 0; the mTLS
+   endpoint refusing a client with no certificate and answering one with
+   its certificate; a CDC insert and a CDC update of a stored row found
+   first at distance 0 (ms); every CQL connection dropped and a CDC insert
+   found after the session reconnects (s); the fused and grouped scans'
+   launches during these requests (> 0); rotated certificate files served
+   within WIRE_ROTATE_S (the peer certificate's serial). Then ``python -m
+   vector_store_tpu_torch.run`` itself in a process of its own over a
+   second node of WIRE_DEPLOY_ROWS rows: --version, SERVING within 60 s, a
+   self-query over HTTPS, one more compute process in nvidia-smi, still
+   serving after SIGHUP, exit code 0 within 10 s of SIGTERM; that process
+   starts with the phase and comes up beside the in-process service.
    The smoke's total wall time is printed last of all phases.
 
 Phase 3 also holds both scans under a slot filter against their plain
@@ -207,21 +230,25 @@ and the sharded gate's, kernel 2's includes phase 14's, and the
 ``grouped_scan_sharded`` entry is kernel 2 at one shard's shape with
 phase 14's launches; the F32 scans' counts include phase 16's, and the
 ``grouped_scan_escalated`` entry is kernel 2 at phase 16's escalated slot
-budget with phase 16's launches), the nvidia-smi name/power-limit line,
+budget with phase 16's launches; the F32 scans' counts include phase
+17's), the nvidia-smi name/power-limit line,
 and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import os
+import shutil
 import socket
 import statistics
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -276,10 +303,13 @@ CEILING_BATCH, CEILING_TASKS, CEILING_S = 1024, 4, 5.0  # the in-process ceiling
 # (benchkit/synth.py's rows_file_np writes one file a seed and shape)
 HEADLINE_ENV = {"BENCH_N": "1000000", "BENCH_BATCH": "4096"}
 SCALE_ENV = {"SCALE_N": "131072", "SCALE_STREAM_SECONDS": "10", "HTTP_BENCH_SECONDS": "3"}
+# balanced by each runner's wall time in the last full smoke (PERF.md section
+# 5); the runners that share a file stay in one lane: the dbpedia pair, the
+# streaming pair, and filtered-engine with http
 SCALE_LANES = (
-    ("dbpedia-bf16", "dbpedia-i8", "glove", "filtered-1000k"),
-    ("streaming-1000k", "streaming-actor-1000k", "deep10m", "partition-1000k"),
-    ("filtered-engine-1000k", "http-1000k", "graph-1000k", "filtered-diverse-1000k"),
+    ("dbpedia-bf16", "dbpedia-i8", "filtered-1000k", "graph-1000k"),
+    ("filtered-engine-1000k", "http-1000k", "deep10m", "glove", "partition-1000k"),
+    ("filtered-diverse-1000k", "streaming-1000k", "streaming-actor-1000k"),
 )
 BENCH_TIMEOUT_S = 420
 # each kernel's time under the port's first scan core, before its redesign
@@ -289,6 +319,17 @@ BENCH_TIMEOUT_S = 420
 # log line, never in the result
 PREV_MS = {"fused_scan": 11.236, "grouped_scan": 0.664, "partition_scan": 0.357, "grouped_scan_g": 3.173,
            "grouped_scan_i8": 17.042}
+
+# the deployed entry point (phase 17): phase 5's first WIRE_ROWS rows behind a
+# fake ScyllaDB node in a process of its own (cut from 1M: the wire's
+# bootstrap runs at ~16-19k rows/s, and at 524,288 rows a full smoke read
+# 1169.5 s of its 1200; PERF.md section 4), and `python -m
+# vector_store_tpu_torch.run` in a process of its own over WIRE_DEPLOY_ROWS
+WIRE_ROWS = 262_144
+WIRE_DEPLOY_ROWS = 4096
+WIRE_CREDENTIALS = ("vector_store", "smoke-wire-password")
+WIRE_ROTATE_S = 3.0  # the rotated certificate served within this, at a 1 s file check
+WIRE_SERVING_S, WIRE_SIGTERM_S = 60.0, 10.0
 
 # the H100 SXM's published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -1040,6 +1081,7 @@ async def service_phase(device, card: str, storage: str = "F32") -> dict:
             check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
             if storage == "F32":
                 PHASE5["p50_ms"] = 1e3 * statistics.median(lat)
+                PHASE5["ingest_s"] = ingest_s
             print(
                 f"{tag} smoke readings on {card}: ingest {ingest_s:.1f} s for {n} rows, "
                 f"device build slices {build_s:.1f} s over {rebuilds} builds, "
@@ -2878,9 +2920,454 @@ def recovery_phase(device, card: str) -> tuple[dict, dict]:
     return entry, launches
 
 
+def make_certs(directory: str) -> dict:
+    """PEM files in ``directory`` for HTTPS and mTLS, made with the
+    ``cryptography`` package: a CA, a server certificate for localhost and
+    127.0.0.1, a client certificate, and a second server certificate of
+    the same CA with a serial of its own (the rotation). Returns their
+    paths and the two server serials."""
+    import datetime as dt
+    import ipaddress
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import ec
+    from cryptography.x509.oid import ExtendedKeyUsageOID, NameOID
+
+    now = dt.datetime.now(dt.timezone.utc)
+    out: dict = {}
+
+    def issue(name: str, ca=None, usage=None):
+        key = ec.generate_private_key(ec.SECP256R1())
+        subject = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, name)])
+        signer = ca or (subject, key)
+        builder = (
+            x509.CertificateBuilder().subject_name(subject).issuer_name(signer[0]).public_key(key.public_key())
+            .serial_number(x509.random_serial_number())
+            .not_valid_before(now - dt.timedelta(hours=1)).not_valid_after(now + dt.timedelta(days=1))
+            .add_extension(x509.BasicConstraints(ca=ca is None, path_length=None), critical=True)
+            .add_extension(x509.SubjectKeyIdentifier.from_public_key(key.public_key()), critical=False)
+            .add_extension(x509.AuthorityKeyIdentifier.from_issuer_public_key(signer[1].public_key()), critical=False)
+        )
+        if ca is None:
+            builder = builder.add_extension(x509.KeyUsage(
+                digital_signature=True, content_commitment=False, key_encipherment=False, data_encipherment=False,
+                key_agreement=False, key_cert_sign=True, crl_sign=True, encipher_only=False, decipher_only=False),
+                critical=True)
+        else:
+            builder = builder.add_extension(x509.ExtendedKeyUsage([usage]), critical=False).add_extension(
+                x509.SubjectAlternativeName([x509.DNSName("localhost"),
+                                             x509.IPAddress(ipaddress.ip_address("127.0.0.1"))]), critical=False)
+        cert = builder.sign(signer[1], hashes.SHA256())
+        for kind, data in (("crt", cert.public_bytes(serialization.Encoding.PEM)),
+                           ("key", key.private_bytes(serialization.Encoding.PEM, serialization.PrivateFormat.PKCS8,
+                                                     serialization.NoEncryption()))):
+            path = os.path.join(directory, f"{name}.{kind}")
+            with open(path, "wb") as f:
+                f.write(data)
+            out[f"{name}_{kind}"] = path
+        return subject, key, cert.serial_number
+
+    ca = issue("ca")
+    out["server_serial"] = issue("server", ca, ExtendedKeyUsageOID.SERVER_AUTH)[2]
+    out["rotated_serial"] = issue("rotated", ca, ExtendedKeyUsageOID.SERVER_AUTH)[2]
+    issue("client", ca, ExtendedKeyUsageOID.CLIENT_AUTH)
+    return out
+
+
+def wire_env(node_port: int, http_port: int, mtls_port: int, certs: dict, password_file: str) -> dict:
+    """The VECTOR_STORE_* configuration of a deployment: a CQL endpoint
+    with auth, HTTPS, the mTLS endpoint, fine CDC intervals and a 1 s
+    certificate check."""
+    return {
+        "VECTOR_STORE_SCYLLADB_URI": f"127.0.0.1:{node_port}",
+        "VECTOR_STORE_SCYLLADB_USERNAME": WIRE_CREDENTIALS[0],
+        "VECTOR_STORE_SCYLLADB_PASSWORD_FILE": password_file,
+        "VECTOR_STORE_URI": f"127.0.0.1:{http_port}",
+        "VECTOR_STORE_TLS_CERT_PATH": certs["server_crt"],
+        "VECTOR_STORE_TLS_KEY_PATH": certs["server_key"],
+        "VECTOR_STORE_MTLS_URI": f"127.0.0.1:{mtls_port}",
+        "VECTOR_STORE_MTLS_CA_CERT_PATH": certs["ca_crt"],
+        "VECTOR_STORE_CDC_FINE_SAFETY_INTERVAL": "20ms",
+        "VECTOR_STORE_CDC_FINE_SLEEP_INTERVAL": "50ms",
+        "VECTOR_STORE_MONITOR_INDEXES_INTERVAL": "100ms",
+        "VECTOR_STORE_TLS_FILE_CHECK_INTERVAL": "1s",
+    }
+
+
+def write_password(directory: str) -> str:
+    path = os.path.join(directory, "scylladb-password")
+    with open(path, "w") as f:
+        f.write(WIRE_CREDENTIALS[1] + "\n")
+    return path
+
+
+class Node:
+    """A fake ScyllaDB node (vector_store_tpu_torch/db/cql/fake_scylla.py) in
+    a spawned process of its own, requiring the smoke's credentials; driven
+    through a pipe. The process starts at once and waits for its rows
+    (``load``); ``port`` waits until it listens."""
+
+    CHUNK_ROWS = 4096  # rows a message: a pipe read of one huge message is slow
+
+    def __init__(self) -> None:
+        import multiprocessing
+
+        from vector_store_tpu_torch.db.cql.fake_scylla import node_process
+
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, theirs = ctx.Pipe()
+        self.proc = ctx.Process(target=node_process, args=(theirs, WIRE_CREDENTIALS), daemon=True)
+        self.proc.start()
+        theirs.close()
+        self._port = None
+
+    def load(self, rows: np.ndarray) -> None:
+        rows = np.ascontiguousarray(rows, dtype=np.float32)
+        self.conn.send(rows.shape)
+        for lo in range(0, len(rows), self.CHUNK_ROWS):
+            self.conn.send_bytes(memoryview(rows[lo : lo + self.CHUNK_ROWS]).cast("B"))
+
+    @property
+    def port(self) -> int:
+        if self._port is None:
+            check(self.conn.poll(120), "the fake ScyllaDB node never listened")
+            self._port = self.conn.recv()[1]
+        return self._port
+
+    def call(self, *cmd):
+        """One command and its answer."""
+        self.port
+        self.conn.send(cmd)
+        check(self.conn.poll(60), f"the fake ScyllaDB node did not answer {cmd[0]}")
+        return self.conn.recv()
+
+    def stop(self) -> None:
+        if self.proc.is_alive() and self._port is not None:
+            with contextlib.suppress(OSError, EOFError, RuntimeError):
+                self.call("stop")
+            self.proc.join(10)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(5)
+
+
+@contextlib.contextmanager
+def environment(env: dict):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tls_client(certs: dict, with_client_cert: bool = False):
+    import ssl
+
+    ctx = ssl.create_default_context(cafile=certs["ca_crt"])
+    if with_client_cert:
+        ctx.load_cert_chain(certs["client_crt"], certs["client_key"])
+    return ctx
+
+
+async def peer_serial(port: int, certs: dict) -> int:
+    """The serial of the certificate the HTTPS listener presents (verified
+    against the phase's CA)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port, ssl=tls_client(certs))
+    try:
+        return int(writer.get_extra_info("peercert")["serialNumber"], 16)
+    finally:
+        writer.close()
+        with contextlib.suppress(Exception):
+            await writer.wait_closed()
+
+
+async def found_first(client: "Http", pk: int, vector, timeout: float = 30.0) -> float:
+    """Seconds until ``pk`` answers its own vector first at distance 0."""
+    t0 = time.perf_counter()
+    while True:
+        res = await client.ann(vector, 3)
+        if res["primary_keys"]["pk"][:1] == [pk] and abs(res["distances"][0]) <= 1e-6:
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout, f"row {pk} not found first at distance 0 within {timeout} s: {res}")
+        await asyncio.sleep(0.01)
+
+
+async def wire_phase(device, card: str, phase5_qps: float, node: Node, certs: dict, password_file: str) -> dict:
+    """Phase 17's first half: the deployed path over the CQL wire to
+    ``node`` (a Node process started before anything touched the card), in
+    this process, built as run.main builds it; returns the scans' launches
+    during the requests."""
+    import aiohttp
+
+    from vector_store_tpu_torch import run
+    from vector_store_tpu_torch.ops import fused_scan as fs
+    from vector_store_tpu_torch.ops import ivf
+    from vector_store_tpu_torch.service.config import ConfigManager
+    from vector_store_tpu_torch.service.node_state import NodeStatus
+
+    t_phase = time.perf_counter()
+    data, queries, _ = phase5_rows(np.random.default_rng(SEED + 1), device)
+    n = WIRE_ROWS
+    rows = data[:n]
+    node.load(rows)
+    gt = exact_top_k(torch.from_numpy(rows).to(device), torch.from_numpy(queries).to(device), K)
+    http_port, mtls_port = free_port(), free_port()
+    service = None
+    try:
+        print(f"[wire] fake ScyllaDB node (pid {node.proc.pid}) over {n} rows on 127.0.0.1:{node.port}, "
+              f"listening {time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+        with environment(wire_env(node.port, http_port, mtls_port, certs, password_file)):
+            t0 = time.perf_counter()
+            config = ConfigManager().config
+            db = run.make_scylla_db(config)
+            service = await run.serve(db, config)  # no device: the service takes the card
+        check(service.device.type == device.type, f"the service runs on {service.device}")
+        https = tls_client(certs)
+        async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(ssl=https, limit=IN_FLIGHT)) as http:
+            client = Http(http, f"https://127.0.0.1:{http_port}/api/v1/indexes/ks/idx")
+            while service.node_state.get_status() is not NodeStatus.SERVING:
+                check(time.perf_counter() - t0 < 60, f"the node is {service.node_state.get_status()} after 60 s")
+                await asyncio.sleep(0.02)
+            serving_s = time.perf_counter() - t0
+            await client.wait_for(lambda: client.counted(n), f"{n} rows over the wire", timeout=300)
+            ingest_s = time.perf_counter() - t0
+            stats = (await asyncio.to_thread(node.call, "stats"))[1]
+            check(stats["rows_served"] == n, f"the node served {stats['rows_served']} rows, not {n}")
+            phase5_rate = SERVICE_ROWS / PHASE5["ingest_s"]
+            print(f"[wire] 1. discovery -> SERVING (the initial full scan done) in {serving_s:.2f} s; bootstrap of {n} rows over the CQL wire "
+                  f"(auth, 17 token ranges, {stats['pages']} pages) in {ingest_s:.1f} s: {n / ingest_s:.0f} rows/s "
+                  f"(phase 5's FakeDb ingest: {phase5_rate:.0f} rows/s)", flush=True)
+            engine = service.indexes.get_vs(("ks", "idx")).actor.engine
+
+            async def built() -> bool:
+                return engine.nlist > 0 and engine.maintain_pending() is None
+
+            await client.wait_for(built, "the IVF build to swap in and settle", timeout=120)
+            build_s = sum(sec for _, sec in engine.maintain_log)
+            check((await client.status())["count"] == n, "the count moved off the rows")
+            print(f"[wire] 2. count == {n} rows; IVF nlist={engine.nlist} main={engine._main_rows} "
+                  f"delta={engine._delta.size}; device build slices {build_s:.2f} s, settled "
+                  f"{time.perf_counter() - t0 - ingest_s:.1f} s after the count", flush=True)
+
+            fs.fused_scan.launches_by.clear()
+            ivf.grouped_scan.launches_by.clear()
+            sem = asyncio.Semaphore(IN_FLIGHT)
+            lat: list[float] = []
+
+            async def one(q):
+                async with sem:
+                    t = time.perf_counter()
+                    res = await client.ann(q)
+                    lat.append(time.perf_counter() - t)
+                    return res["primary_keys"]["pk"]
+
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*(one(q) for q in queries))
+            wall = time.perf_counter() - t1
+            recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt)]))
+            print(f"[wire] 3. ANN over HTTPS on {card}: recall@{K} {recall:.4f} over {N_REQUESTS} requests at "
+                  f"{IN_FLIGHT} in flight, {N_REQUESTS / wall:.0f} QPS, p50 {1e3 * statistics.median(lat):.1f} ms "
+                  f"(phase 5 over HTTP: {phase5_qps:.0f} QPS, p50 {PHASE5.get('p50_ms', 0):.1f} ms)", flush=True)
+            check(recall >= RECALL_MIN, f"recall@{K} {recall:.4f} < {RECALL_MIN}")
+
+            rng = np.random.default_rng(SEED + 17)
+            worst = 0.0
+            for i in rng.choice(n, size=16, replace=False):
+                res = await client.ann(rows[i], 3)
+                check(res["primary_keys"]["pk"][0] == int(i) and abs(res["distances"][0]) <= 1e-6,
+                      f"self-query of row {i} returned {res}")
+                worst = max(worst, abs(res["distances"][0]))
+            print(f"[wire] 4. 16 self-queries answered first over HTTPS, at distance 0 (largest |d| {worst:.3g})",
+                  flush=True)
+
+            mtls = f"https://127.0.0.1:{mtls_port}/api/v1/status"
+            try:
+                async with aiohttp.ClientSession() as bare:
+                    await bare.get(mtls, ssl=https)
+                refused = "answered"
+            except aiohttp.ClientError as e:
+                refused = type(e).__name__
+            async with aiohttp.ClientSession() as signed:
+                async with signed.get(mtls, ssl=tls_client(certs, with_client_cert=True)) as resp:
+                    accepted = resp.status
+            print(f"[wire] 5. mTLS endpoint: a client with no certificate refused ({refused}); "
+                  f"one with its certificate answered {accepted}", flush=True)
+            check(refused != "answered" and accepted == 200, "the mTLS endpoint did not hold its clients")
+
+            new = clustered_rows(rng, 3)
+            await asyncio.to_thread(node.call, "write", n, new[0])
+            insert_ms = 1e3 * await found_first(client, n, new[0])
+            j = int(rng.integers(0, n))
+            await asyncio.to_thread(node.call, "write", j, new[1])
+            update_ms = 1e3 * await found_first(client, j, new[1])
+            print(f"[wire] 6. CDC insert of key {n} found first at distance 0 in {insert_ms:.0f} ms; CDC update "
+                  f"of stored row {j}'s vector in {update_ms:.0f} ms", flush=True)
+
+            reconnects = db.session.reconnects
+            dropped = (await asyncio.to_thread(node.call, "drop"))[1]
+            await asyncio.to_thread(node.call, "write", n + 1, new[2])
+            recover_s = await found_first(client, n + 1, new[2], timeout=60)
+            check(db.session.reconnects > reconnects, "the CQL session never reconnected")
+            print(f"[wire] 7. {dropped} CQL connection(s) dropped; the session reconnected "
+                  f"({db.session.reconnects - reconnects} time(s)) and a CDC insert was found first "
+                  f"{recover_s:.2f} s after the drop", flush=True)
+            check((await client.status())["count"] == n + 2, "the count after the CDC rows is not n + 2")
+
+            launches = {"fused_scan": fs.fused_scan.launches_by["float32"],
+                        "grouped_scan": sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items()
+                                            if dt == "float32")}
+
+        check(await peer_serial(http_port, certs) == certs["server_serial"], "HTTPS serves another certificate")
+        for kind in ("key", "crt"):
+            os.replace(certs[f"rotated_{kind}"], certs[f"server_{kind}"])
+        t3 = time.perf_counter()
+        serial = None
+        while serial != certs["rotated_serial"]:
+            check(time.perf_counter() - t3 < WIRE_ROTATE_S,
+                  f"the rotated certificate was not served within {WIRE_ROTATE_S} s")
+            await asyncio.sleep(0.05)
+            with contextlib.suppress(OSError):
+                serial = await peer_serial(http_port, certs)
+        print(f"[wire] 8. rotated certificate files served by the HTTPS listener {time.perf_counter() - t3:.2f} s "
+              f"after the rotation (serial {certs['server_serial']:x} -> {serial:x})", flush=True)
+
+        print(f"[wire] 9. launches during the requests (float32 rows): {launches}", flush=True)
+        check(all(v > 0 for v in launches.values()), f"a kernel of the wire path never launched: {launches}")
+    finally:
+        if service is not None:
+            await service.stop()
+        node.stop()
+    return launches
+
+
+def compute_apps() -> list[str]:
+    return subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
+
+
+class Deployed:
+    """Phase 17's second half: ``python -m vector_store_tpu_torch.run`` in a
+    process of its own over ``node`` loaded with ``rows``. It starts with
+    the phase, beside the in-process service, and a thread notes when it
+    answers SERVING and serves every row; ``check`` then holds --version,
+    SERVING, a self-query over HTTPS, a compute process on the card,
+    SIGHUP and SIGTERM, and ``stop`` ends what is left."""
+
+    def __init__(self, node: Node, rows: np.ndarray, certs: dict, password_file: str) -> None:
+        node.load(rows)
+        self.node, self.rows = node, rows
+        root = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "vector_store_tpu_torch.run"]
+        self.version = subprocess.Popen(cmd + ["--version"], cwd=root, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+        http_port = free_port()
+        self.base = f"https://127.0.0.1:{http_port}/api/v1"
+        self.https = tls_client(certs)
+        self.apps0 = compute_apps()
+        self.log = tempfile.NamedTemporaryFile(prefix="vst-run-", suffix=".log", delete=False)
+        # its own copies of the server's files: the in-process half rotates those
+        own = dict(certs)
+        for kind in ("crt", "key"):
+            own[f"server_{kind}"] = certs[f"server_{kind}"] + ".deployed"
+            shutil.copyfile(certs[f"server_{kind}"], own[f"server_{kind}"])
+        env = {**os.environ, **wire_env(node.port, http_port, free_port(), own, password_file)}
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=self.log, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+        self.serving_s = self.rows_s = None
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def get(self, path: str, body: dict | None = None):
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=None if body is None else json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10, context=self.https) as resp:
+            return resp.status, json.loads(resp.read())
+
+    def _watch(self) -> None:
+        """Until the service answers SERVING and then counts every row
+        (or exits, or WIRE_SERVING_S passes): the seconds of each."""
+        while self.proc.poll() is None and time.perf_counter() - self.t0 < WIRE_SERVING_S:
+            with contextlib.suppress(OSError, ValueError):  # not listening yet, or a partial answer
+                if self.serving_s is None:
+                    if self.get("/status")[1] == "SERVING":
+                        self.serving_s = time.perf_counter() - self.t0
+                else:
+                    st = self.get("/indexes/ks/idx/status")[1]
+                    if st.get("status") == "SERVING" and st.get("count") == len(self.rows):
+                        self.rows_s = time.perf_counter() - self.t0
+                        return
+            time.sleep(0.1)
+
+    def self_query(self, i: int) -> None:
+        code, res = self.get("/indexes/ks/idx/ann", {"vector": [float(x) for x in self.rows[i]], "limit": 3})
+        check(code == 200 and res["primary_keys"]["pk"][0] == i and abs(res["distances"][0]) <= 1e-6,
+              f"the deployed service answered row {i}'s self-query with {res}")
+
+    def check(self) -> None:
+        import vector_store_tpu_torch as vst
+
+        try:
+            out, _ = self.version.communicate(timeout=120)
+            check(self.version.returncode == 0 and out.strip() == f"{vst.SERVICE_NAME} {vst.__version__}",
+                  f"--version printed {out!r} (exit {self.version.returncode})")
+            print(f"[deployed] python -m vector_store_tpu_torch.run --version: {out.strip()}", flush=True)
+            self.watcher.join(WIRE_SERVING_S)
+            check(self.serving_s is not None, f"the service was not SERVING within {WIRE_SERVING_S} s "
+                                              f"(exit code {self.proc.poll()})")
+            check(self.rows_s is not None, f"the index was not served within {WIRE_SERVING_S} s")
+            self.self_query(7)
+            apps = compute_apps()
+            print(f"[deployed] python -m vector_store_tpu_torch.run (pid {self.proc.pid}, started with phase 17) "
+                  f"SERVING {self.serving_s:.1f} s after its start, {len(self.rows)} rows served {self.rows_s:.1f} s "
+                  f"after it; a self-query over HTTPS answered at 0; nvidia-smi compute apps {self.apps0} before "
+                  f"it, {apps} while it runs", flush=True)
+            # nvidia-smi names processes by the PIDs of another namespace here:
+            # the service is the one compute process its start added
+            check(len(apps) == len(self.apps0) + 1, "the deployed service holds no context on the card")
+            self.proc.send_signal(signal.SIGHUP)
+            time.sleep(0.5)
+            check(self.proc.poll() is None and self.get("/status")[1] == "SERVING",
+                  "the service did not survive SIGHUP")
+            self.self_query(11)
+            t1 = time.perf_counter()
+            self.proc.send_signal(signal.SIGTERM)
+            code = self.proc.wait(WIRE_SIGTERM_S)
+            print(f"[deployed] after SIGHUP it still served; SIGTERM ended it with exit code {code} in "
+                  f"{time.perf_counter() - t1:.2f} s", flush=True)
+            check(code == 0, f"the service exited {code} on SIGTERM")
+        except BaseException:
+            with open(self.log.name) as f:
+                print(f.read()[-4000:], flush=True)
+            raise
+
+    def stop(self) -> None:
+        if self.version.poll() is None:
+            self.version.kill()
+            self.version.wait()
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.watcher.join(5)
+        self.log.close()
+        os.unlink(self.log.name)
+        self.node.stop()
+
+
 def main() -> None:
     t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
+    # phase 17's fake ScyllaDB nodes: spawned before anything touches the
+    # card, they wait for their rows
+    nodes = (Node(), Node())
     device = torch.device("cuda", 0)
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
@@ -2978,6 +3465,21 @@ def main() -> None:
     results.append(escalated)
     launches["grouped_scan_escalated"] = escalated["launches"]
     for name, count in recovered.items():
+        launches[name] += count
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_line("the deployed entry point")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vst-wire-") as tmp:
+        certs, password_file = make_certs(tmp), write_password(tmp)
+        deployed = Deployed(nodes[1], PHASE5["data"][:WIRE_DEPLOY_ROWS], certs, password_file)
+        try:
+            wire = asyncio.run(wire_phase(device, card, phase5_qps, nodes[0], certs, password_file))
+            deployed.check()
+        finally:
+            deployed.stop()
+    print(f"[wire] phase 17 wall time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for name, count in wire.items():
         launches[name] += count
     print(f"[smoke] total wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     for entry in results:

@@ -174,6 +174,13 @@ def test_http_bench_client_loads_no_torch():
     assert _loaded(modules, FORBIDDEN + ("torch",)) == []
 
 
+def test_fake_scylla_node_loads_no_torch():
+    """The fake ScyllaDB node of chip_smoke.py phase 17 (its process's
+    entry point) loads neither torch nor anything of the JAX package."""
+    modules = "vector_store_tpu_torch.db.cql.fake_scylla"
+    assert _loaded(modules, FORBIDDEN + ("torch",)) == []
+
+
 def test_f32_products_never_take_tf32():
     """Importing the engines turns TF32 off for float32 products even where
     the process had turned it on: F32 storage ranks in full f32."""
