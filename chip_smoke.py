@@ -54,8 +54,10 @@ failure:
    phase 3 holds it against its plain version at.
 6. local service: a new service over one local (per-partition) index, the
    partition-1000k configuration of vector_store_tpu/benchkit/scale.py
-   (COSINE, BF16, SERVICE_ROWS clustered rows in 1025 partitions, row i in
-   partition i % 1025), started after phase 5's service stopped. ANN
+   (COSINE, BF16, clustered rows in 1025 partitions, row i in partition
+   i % 1025) cut to CUT_ROWS = 262,144 rows (256 a partition; phases 6-11
+   all run at this depth, their widths as published), started after
+   phase 5's service stopped. ANN
    requests restricted to one partition with 64 in flight: every key in its
    partition, recall@10 against the exact top-10 of the partition
    (>= 0.90), self-queries, one CDC insert and one CDC update of a row's
@@ -63,14 +65,14 @@ failure:
    scan's launch count is reset before and read after the requests, and
    must be > 0.
 7. I8 service: a new service over one global index at the dbpedia-i8
-   shape of vector_store_tpu/benchkit/scale.py (1,000,000 x 1536 clustered
-   rows around 1024 centers, COSINE, I8, rescoring on, default search
+   shape of vector_store_tpu/benchkit/scale.py (1536-d clustered rows
+   around 1024 centers, cut to CUT_ROWS, COSINE, I8, rescoring on, default search
    width: nprobe 32, oversample 4). Recall@10 against exact f32 ground
    truth on the card (>= 0.90, printed beside the reference's 0.9594),
    self-queries and one CDC upsert found first at distance 0, and the
    int8 grouped scan launched during the requests.
 8. filtered service: a new service over filtered-1000k of
-   vector_store_tpu/benchkit/scale.py (SERVICE_ROWS clustered 128-d rows,
+   vector_store_tpu/benchkit/scale.py (CUT_ROWS clustered 128-d rows,
    COSINE, F32, global, nprobe 32, one int filtering column ``bucket``
    labelled as benchkit/suite.py's selectivity(): bucket b matches 50%,
    10%, 1% or 0.1% of the rows; ingested row by row, since filtering
@@ -93,7 +95,7 @@ failure:
    oracle's (the same candidates re-ranked in exact f32) minus 0.01;
    self-queries and one CDC insert found first at distance 0 (a rounded
    Hamming distance); one search batch timed at B 64 and B 1024.
-10. local I8 service: partition-1000k stored as I8 (the directory's exact
+10. local I8 service: phase 6's configuration stored as I8 (the directory's exact
    gather and the bf16 tier): every key in its partition, recall@10
    against the partition's exact top-10 (>= 0.90), self-queries and a CDC
    insert found first within 1e-6 of distance 0, no partition scan launch
@@ -101,11 +103,11 @@ failure:
    gather against the masked scan at B 64 and B 2048 beside the engine's
    crossover constant, and the f64 block distance against an f32 sum.
 11. graph service: graph-1000k of vector_store_tpu/benchkit/scale.py
-   (1,000,000 x 128 clustered rows in 512 clusters, EUCLIDEAN, BF16, the
+   (128-d clustered rows in 512 clusters, cut to CUT_ROWS, EUCLIDEAN, BF16, the
    index's default connectivity 16 and expansion 128 / 64) served under
    ``engine_kind="graph"``: the build path the actor's first merge took,
    the seconds until the delta is merged and the refinement pass is done,
-   graph_nodes (== 1,000,000) and device_bytes; recall@10 against exact
+   graph_nodes (== the rows) and device_bytes; recall@10 against exact
    f32 over 512 held queries (>= 0.90), QPS and p50 at 64 in flight; one
    beam-search batch at B 64 and B 2048 (CUDA events); one kNN chunk of
    the bulk build (B 2048 stored rows) against fused_scan_plain; 256
@@ -258,27 +260,32 @@ import torch
 SEED = 20261016
 DIMS = 128
 SERVICE_ROWS = 1_000_000
-LOCAL_PARTS = 1025  # partition-1000k: ~976 rows a partition
-PART_PCAP, PART_PMAX = 2048, 1024  # its directory geometry after ingest
+# phases 6-11 serve their configurations at this depth: widths, partition
+# count, clusters and selectivities as published, rows cut from 1M (at 1M
+# each, ingested through the one actor, the whole smoke ran past its 1200 s
+# limit on an H100; PERF.md section 4)
+CUT_ROWS = 262_144
+LOCAL_PARTS = 1025  # partition-1000k's partitions (~976 rows each at 1M, 256 at CUT_ROWS)
+LOCAL_PCAP, LOCAL_PMAX = 2048, 256  # the local service's directory geometry after ingest
 N_CLUSTERS = 256
 N_REQUESTS = 1024
 IN_FLIGHT = 64
 K = 10
 RECALL_MIN = 0.90
 RTOL = 1e-4
-I8_ROWS, I8_DIMS, I8_CENTERS = 1_000_000, 1536, 1024  # dbpedia-i8
+I8_ROWS, I8_DIMS, I8_CENTERS = 1_000_000, 1536, 1024  # dbpedia-i8 (phase 3's I8 kernel shape)
 I8_RECALL_REFERENCE = 0.9594  # the JAX package's run of dbpedia-i8 (SCALE_RUNS.jsonl:21)
 G_SWEEP = (1, 2, 4, 8)
 MASK_FRACS = (0.1, 0.001)  # allowed shares of phase 3's masked scans
 SELECTIVITY = (0.5, 0.1, 0.01, 0.001)  # vector_store_tpu/benchkit/harness.py:25
 FILTERED_REQUESTS = FILTERED_IN_FLIGHT = 128  # filtered-1000k (benchkit/scale.py:416-449)
-B1_ROWS = I8_ROWS  # the dbpedia-i8 shape, stored as B1
+B1_ROWS = I8_SERVICE_ROWS = CUT_ROWS  # the dbpedia-i8 shape (stored as I8, then as B1), cut
 B1_REQUESTS = 128
 B1_OVERSAMPLE = 4  # the flat engine's default
 B1_ORACLE = 32  # queries held to the Hamming oracle
 # graph-1000k (vector_store_tpu/benchkit/scale.py:41-130): 1M x 128 rows in
-# 512 clusters, EUCLIDEAN, BF16, the index's default graph options
-GRAPH_ROWS, GRAPH_CLUSTERS, GRAPH_HELD = 1_000_000, 512, 512
+# 512 clusters, EUCLIDEAN, BF16, the index's default graph options; cut
+GRAPH_ROWS, GRAPH_CLUSTERS, GRAPH_HELD = CUT_ROWS, 512, 512
 GRAPH_SELF, GRAPH_CDC = 256, 256  # self-queries; CDC inserts, checked in the delta and merged
 # the share of stored (or merged) rows a graph self-query must find first:
 # at graph-1000k after the refinement pass the beam (ef 64) found 0.877 of
@@ -341,12 +348,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"smoke check failed: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def host_line(before: str) -> None:
     """What the process carries into a phase: the service phases are bound
-    by this one Python process, so their readings depend on it."""
+    by this one Python process, so their readings depend on it. The wall
+    clock since the script started gives each phase's share of the run."""
     cpu = os.times()
     print(f"[host] before {before}: {len(gc.get_objects()):,} gc-tracked objects, {threading.active_count()} threads, "
-          f"process CPU {cpu.user + cpu.system:.1f} s, {os.cpu_count()} cores", flush=True)
+          f"process CPU {cpu.user + cpu.system:.1f} s, {os.cpu_count()} cores; wall clock "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -1142,7 +1154,7 @@ async def local_phase(device, card: str) -> int:
     from vector_store_tpu_torch.run import serve
 
     rng = np.random.default_rng(SEED + 2)
-    n = SERVICE_ROWS
+    n = CUT_ROWS
     data = clustered_rows(rng, n)
     pick = rng.integers(0, n, size=N_REQUESTS)
     qpart = pick % LOCAL_PARTS
@@ -1177,7 +1189,7 @@ async def local_phase(device, card: str) -> int:
             print(f"[local] {n} rows in {LOCAL_PARTS} partitions ingested in {ingest_s:.1f} s; directory "
                   f"P_cap x pmax = {engine._part_rows_host.shape}, capacity {engine.capacity}, "
                   f"device bytes {engine.device_bytes:,}", flush=True)
-            check(engine._part_rows_host.shape == (PART_PCAP, PART_PMAX), "unexpected directory geometry")
+            check(engine._part_rows_host.shape == (LOCAL_PCAP, LOCAL_PMAX), "unexpected directory geometry")
 
             async def first_is(vector, p: int, want: tuple[int, int]) -> bool:
                 res = await client.ann(vector, 3, **in_partition(p))
@@ -1246,7 +1258,7 @@ async def i8_phase(device, card: str) -> int:
     from vector_store_tpu_torch.service.config import Config
 
     rng = np.random.default_rng(SEED + 5)
-    n, dims = I8_ROWS, I8_DIMS
+    n, dims = I8_SERVICE_ROWS, I8_DIMS
     t_gen = time.perf_counter()
     data = clustered_rows(rng, n, dims, I8_CENTERS)
     pick = rng.integers(0, n, size=N_REQUESTS)
@@ -1359,7 +1371,7 @@ async def filtered_phase(device, card: str) -> dict:
     from vector_store_tpu_torch.service.config import Config
 
     rng = np.random.default_rng(SEED + 8)
-    n = SERVICE_ROWS
+    n = CUT_ROWS
     data = clustered_rows(rng, n)
     labels = bucket_labels(rng, n)
     pick = rng.integers(0, n, size=FILTERED_REQUESTS)
@@ -1649,7 +1661,7 @@ async def local_i8_phase(device, card: str) -> None:
     from vector_store_tpu_torch.service.config import Config
 
     rng = np.random.default_rng(SEED + 10)
-    n = SERVICE_ROWS
+    n = CUT_ROWS
     data = clustered_rows(rng, n)
     pick = rng.integers(0, n, size=N_REQUESTS)
     qpart = pick % LOCAL_PARTS
