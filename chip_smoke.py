@@ -28,7 +28,14 @@ failure:
    (nlist 2048 x cmax 640, Dp 1536, s 32: what the engine picks for 1M
    rows and a 1024-query batch at nprobe 32); and both scans, small, at
    Dp 3072 and at their tail shapes (row lengths 8 mod 16, query tiles cut
-   short, cmax 384 and 640, a group with no live row). Ranks agree within
+   short, cmax 384 and 640, a group with no live row). Kernel 2 over the
+   compact pair list (the search path) at the main shape (the pairs of
+   1024 queries probing 32 uniform clusters each, F32 and BF16) and at
+   the I8 shape: against its plain version on every scanned pair and
+   against the dense kernel's filled slots of the same pairs, timed
+   beside the dense kernel, its bound the work done (the rows of clusters
+   with a scanned pair, the scanned pairs' queries and candidates).
+   Ranks agree within
    1e-4 * (1 + |r|); positions are equal except where the kernel's row
    ties the plain winner within that tolerance in the same group. Median
    times over CUDA events after warm-up, beside each kernel's bound (the
@@ -39,15 +46,21 @@ failure:
    timed against the masked full scan over 1,000,000 rows: the crossover
    the flat engine routes on (PART_CROSSOVER).
 4. stage: the stage ablation of the IVF candidate pipeline
-   (vector_store_tpu_torch/bench/ivf_stage.py) and its table; its
-   equivalence check (combo g8 + merge_v3 against the base) must hold.
-   The grouped scan's launches at g > 1 are counted over this phase.
+   (vector_store_tpu_torch/bench/ivf_stage.py), dense and compact, and
+   its table: at its own shape, at the slot budget the engine serves a
+   4096-query batch with after a boost of 64 (s 2048; the stage rows),
+   and over I8 rows at the dbpedia-i8 main region's shape (base and
+   pairs); its equivalence check (combo g8 + merge_v3 and the pairs
+   pipeline against the base) must hold. The dense grouped scan runs on
+   no search path; its launches (float, int8, g > 1) are counted over
+   this phase.
 5. service: the port's HTTP service (run.serve) over FakeDb with one
    default vector index (COSINE, F32, global) of SERVICE_ROWS clustered
    128-d rows; ANN requests with 64 in flight, recall@10 against exact f32
    ground truth computed on the card (>= 0.90), self-queries and one CDC
-   upsert found first at distance 0. The fused and grouped scans' launch
-   counts are reset before and read after the requests, and must be > 0.
+   upsert found first at distance 0. The fused scan's and the compact
+   grouped scan's launch counts are reset before and read after the
+   requests, and must be > 0.
    Then the same phase again as a new service over the same rows stored
    as BF16: its searches launch the scans' tensor-core instantiations,
    the fused one over the IVF delta's whole capacity, which is the shape
@@ -70,7 +83,7 @@ failure:
    width: nprobe 32, oversample 4). Recall@10 against exact f32 ground
    truth on the card (>= 0.90, printed beside the reference's 0.9594),
    self-queries and one CDC upsert found first at distance 0, and the
-   int8 grouped scan launched during the requests.
+   int8 compact grouped scan launched during the requests.
 8. filtered service: a new service over filtered-1000k of
    vector_store_tpu/benchkit/scale.py (CUT_ROWS clustered 128-d rows,
    COSINE, F32, global, nprobe 32, one int filtering column ``bucket``
@@ -144,7 +157,7 @@ failure:
    each must exit 0 and print its JSON line with every recall in [0, 1];
    its wall time is printed. Each process prints its scan kernels' launch
    counts on the line before its JSON; they are added to the kernels line,
-   and the headline's launches of kernels 1 and 2 must be > 0.
+   and the headline's launches of kernels 1 and 2 (compact) must be > 0.
 14. sharded IVF: phase 5's rows (kept from phase 5, not drawn again)
    served under ``engine_kind="ivf-sharded"`` over SHARDS = 4 shards (all
    on the one card; one a card where more are present): the mesh's
@@ -154,12 +167,13 @@ failure:
    requests at 64 in flight (>= 0.95, the JAX package's sharded gate),
    QPS and p50 beside phase 5's; 16 self-queries and a CDC insert
    (through the sharded delta) found first within 1e-6 of 0, a deleted
-   row that no longer answers, and kernel 2 launched during the
-   requests (their launches are added to kernel 2's entry, and are the
-   ``grouped_scan_sharded`` entry's). Kernel 2 at one shard's shape
+   row that no longer answers, and kernel 2 (compact) launched during the
+   requests (their launches are added to its entry, and are the
+   ``grouped_scan_pairs_sharded`` entry's). Kernel 2 at one shard's shape
    (shard 0's nlist_local x cmax, the slot budget of a batch of 64
    requests probed as the engine probes them) is held against its plain
-   version and timed beside its bound. Then ``python -m
+   version and timed beside its bound, over the dense slot plane and over
+   the compact pair list (against the dense kernel too). Then ``python -m
    vector_store_tpu_torch.bench.sharded_gate`` (the twin of
    scripts/sharded_scale_gate.py: 65,536 rows through the actor over 8
    shards) in a process of its own must pass its gate; its JSON line is
@@ -181,7 +195,9 @@ failure:
    row + 0.01) at 4096 copies and at the slot cap S_CAP_SLOTS / nlist:
    pairs dropped, s_boost raised, every top-1 the exact f32 oracle's, the
    cap's batch drop-free once escalated and again; kernel 2 at that
-   escalated budget against its plain version and bound;
+   escalated budget against its plain version and bound, dense and
+   compact, and the batch's whole candidate search (ivf_candidates'
+   compact pipeline against the dense one: equal answers, times);
    search_exact_host at k 50 against the on-card oracle for 8 queries; 20
    rounds of remove and re-add of 8,192 rows (the delta's high-water mark
    and capacity fixed, every row found first at 0 with its newest
@@ -226,15 +242,18 @@ allowed; a lane group, and a cluster, with no allowed row), F32 and BF16,
 each timed beside its unmasked reading.
 
 The last three lines of standard output are: one JSON object describing
-the kernels (the F32 fused and grouped scans' launches are phase 5's and
-phase 12's together, every kernel's count includes phase 13's processes
-and the sharded gate's, kernel 2's includes phase 14's, and the
-``grouped_scan_sharded`` entry is kernel 2 at one shard's shape with
-phase 14's launches; the F32 scans' counts include phase 16's, and the
-``grouped_scan_escalated`` entry is kernel 2 at phase 16's escalated slot
-budget with phase 16's launches; the F32 scans' counts include phase
-17's), the nvidia-smi name/power-limit line,
-and {"ok": true, "device": {...}}.
+the kernels (the F32 fused and compact grouped scans' launches are phase
+5's and phase 12's together, every kernel's count includes phase 13's
+processes and the sharded gate's, the compact kernel's includes phase
+14's, and the ``grouped_scan_pairs_sharded`` entry is it at one shard's
+shape with phase 14's launches; the F32 scans' counts include phase
+16's, and the ``grouped_scan_pairs_escalated`` entry is the compact
+kernel at phase 16's escalated slot budget with phase 16's launches; the
+F32 scans' counts include phase 17's; the dense kernel's entries,
+``grouped_scan``, ``grouped_scan_g``, ``grouped_scan_i8``,
+``grouped_scan_sharded`` and ``grouped_scan_escalated``, carry its
+launches in phase 4, the one path that still runs it), the nvidia-smi
+name/power-limit line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -385,6 +404,27 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, m: int = 20, reps: int = 5) -> float:
+    """A call's device time: the median over ``reps`` runs of ``m``
+    back-to-back calls between two CUDA events, over m. The host enqueues
+    a call while the card runs the one before, so its own time hides
+    wherever it is the shorter (median_ms times one call on an idle card,
+    host time included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(m):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / m)
+    return statistics.median(times)
+
+
 def bound(nbytes: float, ops: float, dtype: torch.dtype) -> dict:
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the peak of their type (int8 x
@@ -511,11 +551,21 @@ def kernel_phase(device) -> list[dict]:
                  **scan_bound(nlist * cmax, nlist * s, nlist * s * cmax, DIMS, torch.float32, torch.float32,
                               nlist * s * fs.LANES))
     out.append(entry)
-    del v32, qg32, v, q, prank, ppos
+    del qg32, v, q, prank, ppos
+    # -- kernel 2 over the compact pair list, the search path ----------------
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    probes = uniform_probes(gen, nq, nlist, 32)
+    q32 = unit_rows_on(device, gen, nq, DIMS, torch.float32)
+    readings = {dt: pairs_case(f"main {dt}", q32.to(dt), probes, v32.to(dt), a, b, s, cmax) for dt in
+                (torch.float32, torch.bfloat16)}
+    out.append(pairs_entry("grouped_scan_pairs", readings[torch.float32],
+                           max(r["max_abs_err"] for r in readings.values())))
+    del v32, q32
     torch.cuda.empty_cache()
     out.append(partition_kernel(device, rng))
     out.append(grouped_g_sweep(device))
-    out.append(grouped_i8_kernel(device))
+    out.extend(grouped_i8_kernel(device))
     edge_shapes(device)
     return out
 
@@ -676,6 +726,95 @@ def grouped_product(q, v, s, cmax):
     return torch.bmm(q.view(-1, s, dp), v.view(-1, cmax, dp).transpose(1, 2))
 
 
+def uniform_probes(gen, nq: int, nlist: int, nprobe: int) -> torch.Tensor:
+    """[nq, nprobe] distinct clusters a query, uniform: a balanced batch's
+    probes, drawn on the generator's card."""
+    return torch.rand((nq, nlist), generator=gen, device=gen.device).argsort(dim=1)[:, :nprobe]
+
+
+def pairs_oracle(qp, v, a, b, kept, cl, cmax):
+    """compare()'s two callbacks for the scanned rows ``kept`` of a compact
+    scan (their clusters ``cl``): the exact rank of given rows, and the
+    (cluster, lane) group of a column or a row."""
+    from vector_store_tpu_torch.ops.fused_scan import LANES
+
+    def exact(qi, rows):
+        return a[rows] * (qp[kept[qi]].float() * v[rows].float()).sum(-1) + b[rows]
+
+    def group(qi, col, rows=None):
+        if rows is None:
+            return cl[qi] * cmax + col
+        return (rows // cmax) * cmax + rows % LANES
+
+    return exact, group
+
+
+def pairs_case(label: str, q, probes, v, a, b, s: int, cmax: int) -> dict:
+    """Kernel 2 over the compact pair list of ``probes`` [B, nprobe] (queries
+    ``q`` [B, Dp], slot budget ``s``): against its plain version (which pads
+    the pairs of 128 clusters at a time into one product) on every scanned
+    pair, and against the dense kernel's filled slots of the same pairs;
+    timed beside the dense kernel and one torch.bmm over the clusters with
+    a scanned pair, their pairs padded to the largest count (the product
+    alone). The bound is the work done: the rows of clusters with at least
+    one scanned pair, the scanned pairs' queries and candidates, 2 (Dp + 1)
+    operations a scanned pair and row of its cluster."""
+    from vector_store_tpu_torch.ops import ivf
+    from vector_store_tpu_torch.ops.fused_scan import LANES
+
+    nl, dp = v.shape[0] // cmax, v.shape[1]
+    qidx, starts, counts, rop = ivf.compact_pairs(probes, nlist=nl, s=s)
+    qp = q[qidx]
+    mask = rop >= 0
+    kept, cl = rop[mask], probes[mask]
+    oracle = pairs_oracle(qp, v, a, b, kept, cl, cmax)
+    rank, pos = ivf.grouped_scan_pairs(qp, v, a, b, starts, counts, cmax=cmax)
+    prank, ppos = ivf.grouped_scan_pairs_plain(qp, v, a, b, starts, counts, cmax)
+    err = compare(f"grouped_scan_pairs/{label}", rank[kept], pos[kept], prank[kept], ppos[kept], *oracle)
+    del prank, ppos
+    qtab, _, drow = ivf.regroup_pairs(probes, nlist=nl, s=s)
+    qg = q[qtab]
+    check(torch.equal(drow >= 0, mask), f"grouped_scan_pairs/{label}: the compact and dense regroups keep other pairs")
+    drank, dpos = ivf.grouped_scan(qg, v, a, b, s, cmax)
+    compare(f"grouped_scan_pairs/{label} against the dense kernel", rank[kept], pos[kept], drank[drow[mask]],
+            dpos[drow[mask]], *oracle)
+    del rank, pos, drank, dpos
+    ms = median_ms(lambda: ivf.grouped_scan_pairs(qp, v, a, b, starts, counts, cmax=cmax))
+    dense_ms = median_ms(lambda: ivf.grouped_scan(qg, v, a, b, s, cmax), reps=5)
+    queued = (queued_ms(lambda: ivf.grouped_scan_pairs(qp, v, a, b, starts, counts, cmax=cmax)),
+              queued_ms(lambda: ivf.grouped_scan(qg, v, a, b, s, cmax), m=5, reps=3))
+    del qg
+    plain_ms = median_ms(lambda: ivf.grouped_scan_pairs_plain(qp, v, a, b, starts, counts, cmax), reps=3)
+    live = torch.nonzero(counts > 0).flatten()
+    width = int(counts.max())
+    take = starts[live, None].long() + torch.minimum(torch.arange(width, device=v.device), counts[live, None] - 1)
+    padded = qp[take].to(torch.bfloat16 if v.dtype is torch.int8 else v.dtype)
+    rows = v.view(nl, cmax, dp)[live].to(padded.dtype)
+    product_ms = median_ms(lambda: torch.bmm(padded, rows.transpose(1, 2)), reps=5)
+    del padded, rows
+    scanned = int(counts.sum())
+    reading = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "dense_ms": dense_ms, "product_only_ms": product_ms,
+               **scan_bound(live.numel() * cmax, scanned, scanned * cmax, dp, v.dtype, q.dtype, scanned * LANES)}
+    print(f"[kernels] grouped_scan_pairs {label} (nlist {nl} x cmax {cmax}, Dp {dp}, s {s}: {scanned} of "
+          f"{qidx.shape[0]} pairs scanned in {live.numel()} clusters, largest {width}): kernel {ms:.3f} ms, dense "
+          f"kernel {dense_ms:.3f} ms (queued calls: {queued[0]:.3f} and {queued[1]:.3f} ms a call), plain "
+          f"{plain_ms:.3f} ms, product only {product_ms:.3f} ms, bound of the work "
+          f"done {reading['bound_ms']:.3f} ms ({reading['bound_by']}), max |rank err| {err:.3g} (tolerance {RTOL:g} "
+          "* (1 + |r|)); equal to the dense kernel on the filled slots", flush=True)
+    torch.cuda.empty_cache()
+    return reading
+
+
+def pairs_entry(name: str, reading: dict, err: float | None = None) -> dict:
+    """A kernels-line entry of the compact scan from a pairs_case reading."""
+    entry = {"name": name, "route": "cuda", "source": "vector_store_tpu_torch/csrc/grouped_scan.cu",
+             "replaces": "vector_store_tpu/ops/ivf.py:467", "library_ms": None,
+             **{k: reading[k] for k in ("max_abs_err", "ms", "plain_ms", "product_only_ms", "bound_ms", "bound_by")}}
+    if err is not None:
+        entry["max_abs_err"] = err
+    return entry
+
+
 def unit_rows_on(device, gen, n: int, dims: int, dtype, chunk: int = 131_072) -> torch.Tensor:
     """n random unit rows drawn on the card, cast to dtype a chunk at a
     time (int8: the I8 codes round(127 v))."""
@@ -743,9 +882,11 @@ def grouped_g_sweep(device) -> dict:
     return entry
 
 
-def grouped_i8_kernel(device) -> dict:
+def grouped_i8_kernel(device) -> tuple[dict, dict]:
     """The I8 grouped scan (int8 rows, true-scale bf16 queries, the 127x
-    scale folded into a) at the dbpedia-i8 main region's shape."""
+    scale folded into a) at the dbpedia-i8 main region's shape: the dense
+    kernel's entry, then the compact kernel's over the pairs of a
+    1024-query batch at nprobe 32."""
     from vector_store_tpu_torch.ops import ivf
     from vector_store_tpu_torch.ops.fused_scan import LANES
 
@@ -775,9 +916,13 @@ def grouped_i8_kernel(device) -> dict:
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, product only (bf16 bmm) {product_ms:.3f} ms, bound "
           f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), max |rank err| {err:.3g} (tolerance {RTOL:g} * (1 + |r|))",
           flush=True)
+    del q
+    probes = uniform_probes(gen, 1024, nlist, 32)
+    q = unit_rows_on(device, gen, 1024, I8_DIMS, torch.bfloat16)
+    pairs = pairs_entry("grouped_scan_pairs_i8", pairs_case("I8", q, probes, v, a, b, s, cmax))
     del v, q, a, b
     torch.cuda.empty_cache()
-    return entry
+    return entry, pairs
 
 
 def partition_kernel(device, rng) -> dict:
@@ -1057,7 +1202,7 @@ async def service_phase(device, card: str, storage: str = "F32") -> dict:
             # -- the main path, counted ------------------------------------
             fs.fused_scan.launches = 0
             fs.fused_scan.launches_by.clear()
-            ivf.grouped_scan.launches = 0
+            ivf.grouped_scan_pairs.launches = 0
             ivf.grouped_scan.launches_by.clear()
             sem = asyncio.Semaphore(IN_FLIGHT)
             lat: list[float] = []
@@ -1087,8 +1232,7 @@ async def service_phase(device, card: str, storage: str = "F32") -> dict:
             check(res["primary_keys"]["pk"][0] == n and abs(res["distances"][0]) <= 1e-6,
                   f"CDC row query returned {res}")
             launches = {"fused_scan": fs.fused_scan.launches_by[scan_dtype],
-                        "grouped_scan": sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items()
-                                            if dt == scan_dtype)}
+                        "grouped_scan_pairs": ivf.grouped_scan.launches_by[scan_dtype, ivf.PAIRS]}
             print(f"{tag} launches during the main path ({scan_dtype} rows): {launches}", flush=True)
             check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
             if storage == "F32":
@@ -1124,22 +1268,52 @@ def partition_top_k(data: torch.Tensor, queries: torch.Tensor, qpart: np.ndarray
     return torch.cat(out).cpu().numpy()
 
 
-def stage_phase(device) -> int:
-    """Phase 4: the stage ablation of the IVF candidate pipeline; returns
-    the grouped scan's launches at g > 1 over it (kernel 4's path)."""
+# the stage ablation's rows that split a pipeline by stage, dense and compact
+STAGE_SPLIT = ("base", "fake scan", "fake gather", "sliced-out merge", "pairs", "pairs fake scan",
+               "pairs fake gather", "pairs sliced-out merge")
+
+
+def stage_phase(device) -> dict[str, int]:
+    """Phase 4: the stage ablation of the IVF candidate pipeline, dense
+    and compact: at its own shape (every row), at the slot budget the
+    engine serves a 4096-query batch with once a skewed batch has raised
+    its boost to 64 (STAGE_SPLIT's rows), and over I8 rows at the
+    dbpedia-i8 main region's shape (base and pairs). The dense kernel
+    runs on no search path since the compact one took its place; its
+    launches here (by the dense entries' names) are the kernels line's
+    count for its entries."""
     from vector_store_tpu_torch.bench import ivf_stage
     from vector_store_tpu_torch.ops import ivf
 
+    nlist = ivf_stage.SHAPE["nlist"]
+    serving_s = min(ivf.choose_budget(ivf_stage.SHAPE["b"], ivf_stage.SHAPE["nprobe"], nlist) * 64,
+                    (4 << 20) // nlist)  # IvfDeviceIndex._serving_s at s_boost 64 (S_CAP_SLOTS 4 << 20)
+    i8_nlist = ivf.choose_nlist(I8_ROWS)
+    i8_shape = {"b": 1024, "d": I8_DIMS, "nlist": i8_nlist, "cmax": ivf.choose_cmax(I8_ROWS, i8_nlist, headroom=1.25),
+                "nprobe": 32, "k": 4 * K}
+    runs = (
+        ("the ablation's shape", {}),
+        (f"the serving budget after a boost of 64 (s {serving_s})", {"s": serving_s, "rows": tuple(
+            row for row in ivf_stage.ROWS if row[0] in STAGE_SPLIT)}),
+        ("I8 at the dbpedia-i8 main region's shape", {"shape": i8_shape, "storage": "i8", "rows": tuple(
+            row for row in ivf_stage.ROWS if row[0] in ("base", "pairs"))}),
+    )
     ivf.grouped_scan.launches_by.clear()
-    result = ivf_stage.run(device)
-    launches = sum(n for (_, g), n in ivf.grouped_scan.launches_by.items() if g > 1)
-    for line in ivf_stage.table(result):
-        print(f"[stage] {line}", flush=True)
-    print(f"[stage] grouped_scan launches at g > 1 during the ablation: {launches}", flush=True)
-    check(result["equivalence"]["ok"], f"stage ablation: combo differs from base: {result['equivalence']}")
-    check(launches > 0, "the grouped scan never launched with g > 1 in the ablation")
-    del result
-    torch.cuda.empty_cache()
+    for label, kw in runs:
+        result = ivf_stage.run(device, **kw)
+        print(f"[stage] {label}:", flush=True)
+        for line in ivf_stage.table(result):
+            print(f"[stage] {line}", flush=True)
+        check(result["equivalence"]["ok"], f"stage ablation ({label}): combo or pairs differ from base: "
+              f"{result['equivalence']}")
+        del result
+        torch.cuda.empty_cache()
+    by = ivf.grouped_scan.launches_by
+    launches = {"grouped_scan": sum(n for (dt, g), n in by.items() if dt != "int8" and g == 1),
+                "grouped_scan_g": sum(n for (_, g), n in by.items() if g not in (1, ivf.PAIRS)),
+                "grouped_scan_i8": by["int8", 1]}
+    print(f"[stage] the dense grouped scan's launches during the ablation: {launches}", flush=True)
+    check(all(v > 0 for v in launches.values()), f"a dense grouped scan never launched in the ablation: {launches}")
     return launches
 
 
@@ -1331,9 +1505,9 @@ async def i8_phase(device, card: str) -> int:
             res = await client.ann(new, 3)
             check(res["primary_keys"]["pk"][0] == n and abs(res["distances"][0]) <= 1e-6,
                   f"I8 CDC row query returned {res}")
-            launches = sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items() if dt == "int8")
-            print(f"[i8] int8 grouped_scan launches during the I8 path: {launches}", flush=True)
-            check(launches > 0, "the int8 grouped scan never launched on the I8 path")
+            launches = ivf.grouped_scan.launches_by["int8", ivf.PAIRS]
+            print(f"[i8] int8 grouped_scan_pairs launches during the I8 path: {launches}", flush=True)
+            check(launches > 0, "the int8 compact grouped scan never launched on the I8 path")
             print(
                 f"[i8] smoke readings on {card}: ingest {ingest_s:.1f} s for {n} x {dims} rows, "
                 f"device build slices {build_s:.1f} s, {N_REQUESTS / wall:.0f} QPS and p50 "
@@ -1429,7 +1603,7 @@ async def filtered_phase(device, card: str) -> dict:
                     before = await counters()
                     # -- this pass of the filtered path, counted ---------------
                     fs.fused_scan.launches = 0
-                    ivf.grouped_scan.launches = 0
+                    ivf.grouped_scan_pairs.launches = 0
                     sem = asyncio.Semaphore(FILTERED_IN_FLIGHT)
                     lat: list[float] = []
 
@@ -1443,7 +1617,7 @@ async def filtered_phase(device, card: str) -> dict:
                     t1 = time.perf_counter()
                     got = await asyncio.gather(*(one(q) for q in queries))
                     wall = time.perf_counter() - t1
-                    launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan": ivf.grouped_scan.launches}
+                    launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan_pairs": ivf.grouped_scan_pairs.launches}
                     after = await counters()
                     delta = {k: after.get(f"vs_index_{k}", 0) - before.get(f"vs_index_{k}", 0) for k in names}
                     check(all((labels[g] == bi).all() for g in got), f"bucket {frac:.1%}: a key outside the bucket")
@@ -2231,7 +2405,7 @@ async def scaled_phase(device, card: str, phase5_qps: float) -> dict:
             # -- the main path, counted: HTTP through the frontends ---------
             fs.fused_scan.launches = 0
             fs.fused_scan.launches_by.clear()
-            ivf.grouped_scan.launches = 0
+            ivf.grouped_scan_pairs.launches = 0
             ivf.grouped_scan.launches_by.clear()
             readings = {}
             apps = None
@@ -2310,7 +2484,7 @@ async def scaled_phase(device, card: str, phase5_qps: float) -> dict:
             print("[scaled] 16 self-queries and the CDC row first at distance 0 through the frontends; "
                   "404 and 400 through the IPC", flush=True)
             launches = {"fused_scan": fs.fused_scan.launches_by["float32"],
-                        "grouped_scan": sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items() if dt == "float32")}
+                        "grouped_scan_pairs": ivf.grouped_scan.launches_by["float32", ivf.PAIRS]}
             print(f"[scaled] launches during the HTTP requests (float32 rows, counted in the owner): {launches}", flush=True)
             check(all(v > 0 for v in launches.values()), f"a kernel of the scaled path never launched: {launches}")
 
@@ -2394,7 +2568,7 @@ def bench_phase(card: str) -> dict[str, int]:
           f"{res['vs_baseline']}; launches {launches}; process wall {wall:.1f} s", flush=True)
     check(res["recall_gate_passed"] and res["recall_at_10"] >= 0.95,
           f"the headline's recall@10 {res['recall_at_10']} is under 0.95")
-    check(launches["fused_scan"] + launches["fused_scan_bf16"] > 0 and launches["grouped_scan"] > 0,
+    check(launches["fused_scan"] + launches["fused_scan_bf16"] > 0 and launches["grouped_scan_pairs"] > 0,
           f"the headline did not launch kernels 1 and 2: {launches}")
     total = dict(launches)
 
@@ -2424,10 +2598,11 @@ def bench_phase(card: str) -> dict[str, int]:
     return total
 
 
-def shard_kernel(device, engine, queries: np.ndarray, launches: int) -> dict:
+def shard_kernel(device, engine, queries: np.ndarray) -> tuple[dict, dict]:
     """Phase 14: kernel 2 at one shard's shape (shard 0's clusters, the
     slot budget of a batch of IN_FLIGHT queries probed as the engine
-    probes them) against its plain version; the kernels line's entry."""
+    probes them) against its plain version, over the dense slot plane and
+    over the compact pair list; the kernels line's two entries."""
     from vector_store_tpu_torch.ops import fused_scan as fs
     from vector_store_tpu_torch.ops import ivf
 
@@ -2446,7 +2621,7 @@ def shard_kernel(device, engine, queries: np.ndarray, launches: int) -> dict:
     prank, ppos = ivf.grouped_scan_plain(qg, v, a, b, s, cmax)
     err = compare("grouped_scan (one shard)", rank, pos, prank, ppos, *grouped_oracle(qg, v, a, b, s, cmax))
     entry = {"name": "grouped_scan_sharded", "route": "cuda", "source": "vector_store_tpu_torch/csrc/grouped_scan.cu",
-             "replaces": "vector_store_tpu/ops/ivf.py:467", "launches": launches, "max_abs_err": err,
+             "replaces": "vector_store_tpu/ops/ivf.py:467", "max_abs_err": err,
              "ms": median_ms(lambda: ivf.grouped_scan(qg, v, a, b, s, cmax)),
              "plain_ms": median_ms(lambda: ivf.grouped_scan_plain(qg, v, a, b, s, cmax), reps=5),
              "library_ms": None, "product_only_ms": median_ms(lambda: grouped_product(qg, v, s, cmax), reps=5),
@@ -2456,13 +2631,14 @@ def shard_kernel(device, engine, queries: np.ndarray, launches: int) -> dict:
           f"{entry['plain_ms']:.3f} ms, product only {entry['product_only_ms']:.3f} ms, bound "
           f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), max |rank err| {err:.3g} (tolerance {RTOL:g} * "
           "(1 + |r|))", flush=True)
-    return entry
+    return entry, pairs_entry("grouped_scan_pairs_sharded", pairs_case("one shard", q, local, v, a, b, s, cmax))
 
 
-async def sharded_ivf_phase(device, card: str, phase5_qps: float | None) -> tuple[dict, int]:
+async def sharded_ivf_phase(device, card: str, phase5_qps: float | None) -> tuple[tuple[dict, dict], int]:
     """Phase 14: phase 5's index served under ``engine_kind="ivf-sharded"``
-    over SHARDS shards; returns kernel 2's entry at one shard's shape and
-    its launches during the phase's requests."""
+    over SHARDS shards; returns kernel 2's entries at one shard's shape
+    (dense, compact) and the compact kernel's launches during the phase's
+    requests."""
     import aiohttp
 
     from vector_store_tpu_torch.core.types import Quantization
@@ -2513,7 +2689,7 @@ async def sharded_ivf_phase(device, card: str, phase5_qps: float | None) -> tupl
                   f"placed rows {placed} and delta {idx._delta_next} do not make {n}")
 
             # -- the main path, counted ------------------------------------
-            ivf.grouped_scan.launches = 0
+            ivf.grouped_scan_pairs.launches = 0
             sem = asyncio.Semaphore(IN_FLIGHT)
             lat: list[float] = []
 
@@ -2527,12 +2703,12 @@ async def sharded_ivf_phase(device, card: str, phase5_qps: float | None) -> tupl
             t1 = time.perf_counter()
             got = await asyncio.gather(*(one(q) for q in queries))
             wall = time.perf_counter() - t1
-            launches = ivf.grouped_scan.launches
+            launches = ivf.grouped_scan_pairs.launches
             recall = float(np.mean([len(set(g) & set(t.tolist())) / K for g, t in zip(got, gt)]))
             qps, p50 = N_REQUESTS / wall, 1e3 * statistics.median(lat)
             print(f"[sharded] recall@{K} {recall:.4f} over {N_REQUESTS} requests at {IN_FLIGHT} in flight; "
                   f"{qps:.0f} QPS, p50 {p50:.1f} ms (phase 5 on one engine: {phase5_qps or 0:.0f} QPS, p50 "
-                  f"{PHASE5.get('p50_ms', 0):.1f} ms); kernel 2 launches during the requests: {launches}", flush=True)
+                  f"{PHASE5.get('p50_ms', 0):.1f} ms); kernel 2 (compact) launches during the requests: {launches}", flush=True)
             check(recall >= SHARDED_RECALL_MIN, f"sharded recall@{K} {recall:.4f} < {SHARDED_RECALL_MIN}")
             check(launches > 0, "kernel 2 never launched during the sharded requests")
 
@@ -2555,10 +2731,10 @@ async def sharded_ivf_phase(device, card: str, phase5_qps: float | None) -> tupl
             check(gone not in res["primary_keys"]["pk"], f"deleted row {gone} still answers")
             print(f"[sharded] 16 self-queries and a CDC insert (through the delta) found first within 1e-6 of 0; "
                   f"deleted row {gone} no longer answers", flush=True)
-            entry = shard_kernel(device, engine, queries, launches)
+            entries = shard_kernel(device, engine, queries)
             print(f"[sharded] smoke readings on {card}: ingest {ingest_s:.1f} s, {len(engine.build_log)} builds, "
                   f"recall@{K} {recall:.4f}, {qps:.0f} QPS, p50 {p50:.1f} ms", flush=True)
-            return entry, launches
+            return entries, launches
     finally:
         await service.stop()
 
@@ -2699,10 +2875,14 @@ def grouped_plain_chunked(q, v, a, b, s: int, cmax: int, clusters: int = 128):
     return torch.cat(ranks), torch.cat(rows)
 
 
-def escalated_kernel(device, eng, query: np.ndarray, batch: int) -> dict:
+def escalated_kernel(device, eng, query: np.ndarray, batch: int) -> tuple[dict, dict]:
     """Phase 16: kernel 2 at the slot budget the skewed batch escalated to
     (``batch`` copies of ``query`` probed and regrouped as the engine does
-    it) against its plain version; the kernels line's entry."""
+    it) against its plain version, over the dense slot plane and over the
+    compact pair list, then the whole candidate search (ivf_candidates'
+    compact pipeline against the dense one); the kernels line's two
+    entries."""
+    from vector_store_tpu_torch.bench import ivf_stage
     from vector_store_tpu_torch.ops import fused_scan as fs
     from vector_store_tpu_torch.ops import ivf
 
@@ -2728,15 +2908,32 @@ def escalated_kernel(device, eng, query: np.ndarray, batch: int) -> dict:
           f"{entry['plain_ms']:.3f} ms, product only {entry['product_only_ms']:.3f} ms, bound "
           f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}), max |rank err| {err:.3g} (tolerance {RTOL:g} * "
           "(1 + |r|))", flush=True)
-    return entry
+    del qg
+    torch.cuda.empty_cache()
+    pairs = pairs_entry("grouped_scan_pairs_escalated", pairs_case("escalated", qs, probes, v, a, b, s, cmax))
+    # the whole candidate search of the batch, as the engine calls it (ivf_candidates: the compact pipeline)
+    # and the same search over the dense slot plane
+    p = ivf_stage.Problem(vectors=v, a=a, b=b, cent=eng.centroids, queries=qs, q_live=live, nlist=nl, cmax=cmax, s=s,
+                          nprobe=min(eng.nprobe, nl), k=K)
+    compact, dense = ivf_stage.pipeline(p, pairs=True), ivf_stage.pipeline(p)
+    check(torch.equal(compact[1], dense[1]) and bool((compact[0] - dense[0]).abs().le(RTOL * (1 + dense[0].abs())).all()),
+          "ivf_candidates at the escalated budget: the compact and the dense pipelines answer differently")
+    del compact, dense
+    call = {name: median_ms(lambda kw=kw: ivf_stage.pipeline(p, **kw), reps=5)
+            for name, kw in (("dense", {}), ("compact", {"pairs": True}), ("dense again", {}),
+                             ("compact again", {"pairs": True}))}
+    print(f"[recovery] the candidate search of {batch} copies at s {s} (probe, regroup, gather, kernel 2, merge; "
+          f"equal answers): {', '.join(f'{k} {ms:.3f} ms' for k, ms in call.items())}", flush=True)
+    torch.cuda.empty_cache()
+    return entry, pairs
 
 
-def recovery_phase(device, card: str) -> tuple[dict, dict]:
+def recovery_phase(device, card: str) -> tuple[tuple[dict, dict], dict]:
     """Phase 16: the IVF engine's recovery paths at phase 5's shape
     (IvfDeviceIndex driven directly, EUCLIDEAN, F32, the engine's
-    defaults). Returns kernel 2's entry at the escalated slot budget and
-    the two scans' launches over the phase (the entry's own comparison
-    launches excluded)."""
+    defaults). Returns kernel 2's entries at the escalated slot budget
+    (dense, compact) and the fused and compact scans' launches over the
+    phase (the entries' own comparison launches excluded)."""
     from vector_store_tpu_torch.core.types import Quantization, SpaceType
     from vector_store_tpu_torch.engine.flat import FlatDeviceIndex
     from vector_store_tpu_torch.engine.ivf import IvfDeviceIndex
@@ -2748,7 +2945,7 @@ def recovery_phase(device, card: str) -> tuple[dict, dict]:
     rng = np.random.default_rng(SEED + 16)
     n = SERVICE_ROWS
     fs.fused_scan.launches = 0
-    ivf.grouped_scan.launches = 0
+    ivf.grouped_scan_pairs.launches = 0
     eng = IvfDeviceIndex(DIMS, SpaceType.EUCLIDEAN, Quantization.F32, device=device)
 
     def found_first(vecs: np.ndarray, slots, epoch: int, what: str) -> None:
@@ -2800,9 +2997,9 @@ def recovery_phase(device, card: str) -> tuple[dict, dict]:
     again = eng.dropped_pair_queries
     eng.search(np.repeat(q[None, :], drop_free[0], axis=0), K)
     check(eng.dropped_pair_queries == again, "the same batch again dropped pairs")
-    counts = (fs.fused_scan.launches, ivf.grouped_scan.launches)
-    entry = escalated_kernel(device, eng, q, drop_free[0])
-    fs.fused_scan.launches, ivf.grouped_scan.launches = counts  # the comparison's launches do not count
+    counts = (fs.fused_scan.launches, ivf.grouped_scan_pairs.launches)
+    entries = escalated_kernel(device, eng, q, drop_free[0])
+    fs.fused_scan.launches, ivf.grouped_scan_pairs.launches = counts  # the comparison's launches do not count
 
     # -- 3. exact host ------------------------------------------------------------
     held = queries[:8]
@@ -2869,10 +3066,10 @@ def recovery_phase(device, card: str) -> tuple[dict, dict]:
     spill_s = failed_rebuild(FlatDeviceIndex, "upsert_bulk_device", 5, new5[0], 9)
     swap_s = failed_rebuild(IvfDeviceIndex, "_tombstone_main", 6, new6[0], 10)
     check(eng.build_failures == 2 and eng.maintain_pending() == "start", "the rebuild is not due again")
-    f0, g0 = fs.fused_scan.launches, ivf.grouped_scan.launches
+    f0, g0 = fs.fused_scan.launches, ivf.grouped_scan_pairs.launches
     found_first(new5, [5], 9, "the first mid-build mutation")
     found_first(new6, [6], 10, "the second mid-build mutation")
-    during = {"fused_scan": fs.fused_scan.launches - f0, "grouped_scan": ivf.grouped_scan.launches - g0}
+    during = {"fused_scan": fs.fused_scan.launches - f0, "grouped_scan_pairs": ivf.grouped_scan_pairs.launches - g0}
     check(all(v > 0 for v in during.values()), f"a kernel did not launch after the restores: {during}")
     print(f"[recovery] two failed rebuilds restored: the spill ingest ({spill_s:.2f} s) and the swap itself "
           f"({swap_s:.2f} s); size {eng.size}, both mid-build mutations found first with their epochs; launches "
@@ -2921,15 +3118,14 @@ def recovery_phase(device, card: str) -> tuple[dict, dict]:
                              torch.from_numpy(queries).to(device), K, "EUCLIDEAN")]
     res = eng.search(queries, K)
     recall = float(np.mean([len(set(r.slots.tolist()) & set(t.tolist())) / K for r, t in zip(res, truth)]))
-    launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan": ivf.grouped_scan.launches}
+    launches = {"fused_scan": fs.fused_scan.launches, "grouped_scan_pairs": ivf.grouped_scan_pairs.launches}
     print(f"[recovery] recall@{K} {recall:.4f} over {len(queries)} held queries against exact f32 over the "
           f"{live.size} live rows (phase 5's COSINE index: 0.9954 in PERF.md); launches {launches}; builds "
           f"{sum(1 for p, _ in eng.maintain_log if p == 'swap')}, failures {eng.build_failures}; phase 16 on {card} "
           f"in {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(recall >= RECALL_MIN, f"recall@{K} {recall:.4f} < {RECALL_MIN}")
     check(all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}")
-    entry["launches"] = launches["grouped_scan"]
-    return entry, launches
+    return entries, launches
 
 
 def make_certs(directory: str) -> dict:
@@ -3232,8 +3428,7 @@ async def wire_phase(device, card: str, phase5_qps: float, node: Node, certs: di
             check((await client.status())["count"] == n + 2, "the count after the CDC rows is not n + 2")
 
             launches = {"fused_scan": fs.fused_scan.launches_by["float32"],
-                        "grouped_scan": sum(c for (dt, _), c in ivf.grouped_scan.launches_by.items()
-                                            if dt == "float32")}
+                        "grouped_scan_pairs": ivf.grouped_scan.launches_by["float32", ivf.PAIRS]}
 
         check(await peer_serial(http_port, certs) == certs["server_serial"], "HTTPS serves another certificate")
         for kind in ("key", "crt"):
@@ -3401,10 +3596,11 @@ def main() -> None:
           "shapes, NVIDIA H100 80GB HBM3, 700 W) -> this run: "
           + ", ".join(f"{e['name']} {PREV_MS[e['name']]:.3f} -> {e['ms']:.3f} ms" for e in results
                       if e["name"] in PREV_MS), flush=True)
-    g_launches = stage_phase(device)
+    stage = stage_phase(device)
     host_line("the F32 service")
     launches, phase5_qps = asyncio.run(service_phase(device, card))
-    launches["grouped_scan_g"] = g_launches
+    # the dense kernel's entries, at every shape: its launches in the ablation
+    launches.update(stage, grouped_scan_sharded=stage["grouped_scan"], grouped_scan_escalated=stage["grouped_scan"])
     gc.collect()
     torch.cuda.empty_cache()
     host_line("the BF16 service")
@@ -3416,7 +3612,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     host_line("the I8 service")
-    launches["grouped_scan_i8"] = asyncio.run(i8_phase(device, card))
+    launches["grouped_scan_pairs_i8"] = asyncio.run(i8_phase(device, card))
     gc.collect()
     torch.cuda.empty_cache()
     host_line("the filtered service")
@@ -3453,9 +3649,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     host_line("the sharded IVF service")
     t_phase = time.perf_counter()
-    sharded, launches["grouped_scan_sharded"] = asyncio.run(sharded_ivf_phase(device, card, phase5_qps))
-    launches["grouped_scan"] += launches["grouped_scan_sharded"]
-    results.append(sharded)
+    sharded, launches["grouped_scan_pairs_sharded"] = asyncio.run(sharded_ivf_phase(device, card, phase5_qps))
+    launches["grouped_scan_pairs"] += launches["grouped_scan_pairs_sharded"]
+    results.extend(sharded)
     gc.collect()
     torch.cuda.empty_cache()
     gate, gate_launches, wall = bench_process("vector_store_tpu_torch.bench.sharded_gate", [], {})
@@ -3474,8 +3670,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     host_line("the IVF recovery paths")
     escalated, recovered = recovery_phase(device, card)
-    results.append(escalated)
-    launches["grouped_scan_escalated"] = escalated["launches"]
+    results.extend(escalated)
+    launches["grouped_scan_pairs_escalated"] = recovered["grouped_scan_pairs"]
     for name, count in recovered.items():
         launches[name] += count
     gc.collect()

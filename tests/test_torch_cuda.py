@@ -6,7 +6,9 @@ differently (a Zipf batch, a hot bucket, the last bucket, an all-dead
 bucket), at the batch sizes whose buckets split across blocks, at pmax
 128 and 16384, at Dp 3072, and at every chunk size against the unsplit
 result. The grouped scan runs at g = 1, 2, 4 and 8 clusters
-per block and over int8 rows (the I8 index); both scans also run at the
+per block and over int8 rows (the I8 index), and over the compact pair
+list (balanced, skewed, sparse and wide batches, every storage type)
+against its plain version and the dense kernel; both scans also run at the
 tails their tensor-core and register-tiled cores must get right (a row
 length that is 8 mod 16, query tiles cut short, cmax 384 and 640, a group
 with no live row) and at Dp 3072. The B1 Hamming distances and the
@@ -148,6 +150,49 @@ def _grouped_full(qg, v, a, b, nlist, s, cmax):
         rows = slice(c * cmax, (c + 1) * cmax)
         full[c * s : (c + 1) * s, rows] = a[rows] * (qg[c * s : (c + 1) * s].float() @ v[rows].float().T) + b[rows]
     return full
+
+
+@pytest.mark.parametrize("dtype", DTYPES + (torch.int8,))
+@pytest.mark.parametrize("layout", ("balanced", "skewed", "sparse", "wide"))
+def test_grouped_scan_pairs_matches_plain_and_dense(cuda, dtype, layout):
+    """The compact kernel (the pair list) against its plain version on every
+    scanned pair, and against the dense kernel's filled slots of the same
+    pairs; one launch counted. Layouts: balanced probes (the tile of 32),
+    a skewed batch that drops pairs at s, a sparse one (the tile of 16,
+    empty clusters), and a wide one whose mean pairs a cluster take the
+    tile of 64; cluster 1 has no live row."""
+    rng = np.random.default_rng(len(layout))
+    nlist, cmax, d = 16, 384, 80 if dtype is torch.int8 else 72  # int8 rows pad to 16 codes
+    nq, nprobe, s = {"balanced": (128, 2, 32), "skewed": (128, 2, 24), "sparse": (20, 3, 16), "wide": (160, 4, 64)}[layout]
+    probes = np.stack([rng.permutation(nlist)[:nprobe] for _ in range(nq)])
+    if layout == "skewed":
+        probes[:100, 0] = 0
+    if layout == "sparse":
+        probes[probes >= 12] = nlist  # the sentinel: clusters 12-15 get no pair
+    probes = torch.from_numpy(probes).to(cuda)
+    _, v, a, b = _grouped_case(rng, cuda, dtype, nlist, cmax, 1, d)
+    q = _rows(rng, nq, d, cuda, torch.bfloat16 if dtype is torch.int8 else dtype)
+    qidx, starts, counts, rop = ivf.compact_pairs(probes, nlist=nlist, s=s)
+    qp = q[qidx]
+    key = (str(dtype).removeprefix("torch."), ivf.PAIRS)
+    before, before_key = ivf.grouped_scan_pairs.launches, ivf.grouped_scan.launches_by[key]
+    rank, pos = ivf.grouped_scan_pairs(qp, v, a, b, starts, counts, cmax=cmax)
+    assert ivf.grouped_scan_pairs.launches == before + 1 and ivf.grouped_scan.launches_by[key] == before_key + 1
+    mask = rop >= 0
+    kept, cl = rop[mask], probes[mask]
+    if layout == "skewed":
+        assert not bool(mask.all())
+    prank, ppos = ivf.grouped_scan_pairs_plain(qp, v, a, b, starts, counts, cmax)
+    full = torch.full((kept.numel(), nlist * cmax), float("inf"), device=cuda)
+    for c in range(nlist):
+        at, rows = (cl == c).nonzero().flatten(), slice(c * cmax, (c + 1) * cmax)
+        full[at, rows] = a[rows] * (qp[kept[at]].float() @ v[rows].float().T) + b[rows]
+    _assert_close_to_plain(rank[kept], pos[kept], prank[kept], full)
+    assert torch.equal(pos[kept] // cmax, cl[:, None].int().expand(-1, fused_scan.LANES))
+    qtab, _, drow = ivf.regroup_pairs(probes, nlist=nlist, s=s)
+    drank, dpos = ivf.grouped_scan(q[qtab], v, a, b, s, cmax)
+    assert torch.equal(drow >= 0, mask)
+    _assert_close_to_plain(rank[kept], pos[kept], drank[drow[mask]], full)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -423,5 +468,8 @@ def test_wrappers_refuse_bad_inputs(cuda):
         fused_scan.fused_scan(torch.zeros((2, 64), device=cuda, dtype=torch.float16), v, a, a, 1024)
     with pytest.raises(ValueError):
         ivf.grouped_scan(torch.zeros((3, 64), device=cuda), v, a, a, 2, 512)
+    starts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # counts on the host
+        ivf.grouped_scan_pairs(torch.zeros((3, 64), device=cuda), v, a, a, starts, starts.cpu(), cmax=512)
     with pytest.raises(ValueError):  # bsel on the host
         ps.partition_scan(v, a, a, torch.zeros((2, 64), device=cuda), torch.zeros(2, dtype=torch.int32), 512)

@@ -125,10 +125,11 @@ def recall(results, gt: np.ndarray, k: int) -> float:
 def launch_counts() -> dict[str, int]:
     """This process's scan-kernel launches, by the names of chip_smoke.py's
     kernels line: the fused scan's F32 and 16-bit instantiations, the
-    grouped scan's float ones at one cluster a block, its int8 one and its
-    g > 1 ones, and the partition scan."""
+    dense grouped scan's float ones at one cluster a block, its int8 one
+    and its g > 1 ones, the compact grouped scan's float and int8 ones
+    (the search path), and the partition scan."""
     from vector_store_tpu_torch.ops.fused_scan import fused_scan
-    from vector_store_tpu_torch.ops.ivf import grouped_scan
+    from vector_store_tpu_torch.ops.ivf import PAIRS, grouped_scan
     from vector_store_tpu_torch.ops.partition_scan import partition_scan
 
     g = grouped_scan.launches_by
@@ -137,7 +138,9 @@ def launch_counts() -> dict[str, int]:
         "fused_scan_bf16": fused_scan.launches_by["bfloat16"] + fused_scan.launches_by["float16"],
         "grouped_scan": sum(n for (dt, gg), n in g.items() if dt != "int8" and gg == 1),
         "grouped_scan_i8": sum(n for (dt, gg), n in g.items() if dt == "int8" and gg == 1),
-        "grouped_scan_g": sum(n for (dt, gg), n in g.items() if gg > 1),
+        "grouped_scan_g": sum(n for (dt, gg), n in g.items() if gg not in (1, PAIRS)),
+        "grouped_scan_pairs": sum(n for (dt, gg), n in g.items() if dt != "int8" and gg == PAIRS),
+        "grouped_scan_pairs_i8": g["int8", PAIRS],
         "partition_scan": partition_scan.launches,
     }
 

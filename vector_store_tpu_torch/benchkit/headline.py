@@ -225,7 +225,8 @@ def main(device=None) -> dict:
 
         dt = timed_loop(one, m, device)
         compute_side = batch * m / dt
-        print(f"[bench] compute_side_qps {compute_side:.0f} ({dt * 1e3 / m:.2f} ms a batch of {batch}, {m} calls)",
+        print(f"[bench] compute_side_qps {compute_side:.0f} ({dt * 1e3 / m:.2f} ms a batch of {batch}, {m} calls, "
+              f"slot budget s {s}, s_boost {index.s_boost})",
               file=sys.stderr, flush=True)
 
     clustered = engine_kind == "ivf" and index.main_vecs is not None

@@ -4,7 +4,8 @@ Counterpart of vector_store_tpu/engine/ivf.py for global F32/F16/BF16 and
 I8 indexes. The engine is an LSM-style pair of regions:
 
 - **main**: cluster-major storage [nlist * cmax, Dp] built by k-means on
-  the device, searched by the grouped scan (ops/ivf.py, kernel 2): each
+  the device, searched by the grouped scan over the compact list of
+  (query, cluster) pairs (ops/ivf.py::ivf_candidates, kernel 2): each
   query scores only its ``nprobe`` probed clusters.
 - **delta**: a FlatDeviceIndex in *position* space absorbing every upsert
   between rebuilds, searched exactly by the fused scan (kernel 1) and
@@ -1100,8 +1101,11 @@ class IvfDeviceIndex:
     def collect_many(self, pendings: list[PendingSearch]) -> list[list[SearchResult]]:
         return [self.search_collect(p) for p in pendings]
 
-    # total (query, cluster) pair slots the grouped scan may materialize
-    # (queries_grouped is [nlist*s, Dp] on the device)
+    # the cap of nlist * s, the JAX engine's (there the slot plane
+    # [nlist*s, Dp] it bounds lived on the device). The port scans the
+    # compact pair list, whose work does not depend on s, so the cap and
+    # the budget only decide which pairs drop: the JAX engine's pairs,
+    # retries and s_boost escalations
     S_CAP_SLOTS = 4 << 20
 
     def _serving_s(self, b: int) -> int:

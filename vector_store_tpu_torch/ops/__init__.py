@@ -1,5 +1,6 @@
 """Device compute ops: quantization, distances, top-k, and the two scan
-kernels (fused_scan: flat scan; ivf.grouped_scan: IVF cluster scan) with
+kernels (fused_scan: flat scan; ivf.grouped_scan_pairs and
+ivf.grouped_scan: IVF cluster scan over a pair list or a slot plane) with
 their build/bind layer (kernels).
 
 Every engine imports this package, so the switches below hold before any

@@ -8,18 +8,29 @@ Counterpart of vector_store_tpu/ops/ivf.py:
    into the rank coefficients by the engine.
 2. A search batch scores all centroids with one matrix product and picks
    ``nprobe`` clusters per query.
-3. The (query, cluster) pairs are regrouped by cluster (a stable sort and
-   one gather) into per-cluster query slots of a fixed budget S, so the
-   scan stays a dense product per cluster: ``grouped_scan``, the same
+3. The (query, cluster) pairs are sorted by cluster, stably (a cluster
+   keeps its pairs in arrival order), and the first S pairs of each
+   cluster win it; the rest drop, as in the JAX engine, whose static
+   shapes laid them out in per-cluster query slots of the budget S.
+4. The kernel scans each cluster's rows against its pairs: the same
    affine rank and per-lane group minimum as the flat scan.
-4. Each query's nprobe * 128 candidates merge with an exact top-k.
+5. Each query's nprobe * 128 candidates merge with an exact top-k.
 
-The probe, regroup and merge are plain PyTorch, as they were XLA outside
-the Pallas kernel. ``grouped_scan`` takes its plain version for CPU
-tensors and launches csrc/grouped_scan.cu for CUDA tensors (tensor-core
-MMAs with f32 accumulation for F16/BF16/I8 rows, f32 FMAs on the CUDA
-cores for F32 rows, any row length), with ``g`` clusters per CUDA block
-(the Pallas kernel's g clusters per grid step, kernel 4 of the JAX
+Two layouts of step 3 and 4. The JAX package's is the dense slot plane
+(``regroup_pairs`` and ``grouped_scan``: nlist * S query rows, most of
+them empty once S is raised for a skewed batch); the search path
+(``ivf_candidates``) takes the compact pair list (``compact_pairs`` and
+``grouped_scan_pairs``: the B * nprobe pairs in (cluster, arrival)
+order, each cluster's winners a contiguous run), whose work is the pairs
+that are scanned whatever S is. Both drop the same pairs, so S only
+decides which pairs drop.
+
+The probe, sort and merge are plain PyTorch, as they were XLA outside
+the Pallas kernel. Both scans take their plain versions for CPU tensors
+and launch csrc/grouped_scan.cu for CUDA tensors (tensor-core MMAs with
+f32 accumulation for F16/BF16/I8 rows, f32 FMAs on the CUDA cores for
+F32 rows, any row length); the dense scan takes ``g`` clusters per CUDA
+block (the Pallas kernel's g clusters per grid step, kernel 4 of the JAX
 package's scripts/ivf_stage_opt2.py).
 """
 
@@ -211,7 +222,7 @@ def ivf_layout(
     return torch.where(placed2, pos2, pos), overflow & ~placed2
 
 
-# -- grouped scan (kernels 2 and 4) ----------------------------------------------
+# -- grouped scan (kernels 2 and 4): the dense slot plane and the pair list -------
 
 
 def choose_g() -> int:
@@ -306,8 +317,103 @@ def grouped_scan(
 
 grouped_scan.launches = 0
 # (storage dtype name, g) -> launches: the I8 instantiation and g > 1
-# (kernel 4) are counted apart from the float scan at g = 1
+# (kernel 4) are counted apart from the float scan at g = 1, and the
+# compact scan's launches (grouped_scan_pairs) under g = PAIRS
 grouped_scan.launches_by = collections.Counter()
+PAIRS = "pairs"
+
+
+def grouped_scan_pairs_plain(
+    queries: torch.Tensor,  # [P, Dp] the pairs' queries in (cluster, arrival) order
+    vectors: torch.Tensor,  # [nlist*cmax, Dp]
+    a: torch.Tensor,  # [nlist*cmax] f32
+    b: torch.Tensor,  # [nlist*cmax] f32
+    starts: torch.Tensor,  # [nlist] i32 first pair of each cluster
+    counts: torch.Tensor,  # [nlist] i32 pairs each cluster scans
+    cmax: int,
+    clusters: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the compact kernel: pair starts[c] + i (i <
+    counts[c]) against cluster c's rows, per lane the smallest rank and its
+    absolute row, with the dense plain version's tie rule (it is that
+    version, over the pairs of ``clusters`` clusters at a time padded to
+    the largest count among them). Returns (rank [P, 128] f32, row [P,
+    128] i32); rows of pairs that are not scanned hold INVALID_BIAS and -1
+    (the kernel leaves them unwritten)."""
+    dev = vectors.device
+    nlist = vectors.shape[0] // cmax
+    rank = torch.full((queries.shape[0], LANES), INVALID_BIAS, dtype=torch.float32, device=dev)
+    row = torch.full((queries.shape[0], LANES), -1, dtype=torch.int32, device=dev)
+    width_of = counts.tolist()
+    for c0 in range(0, nlist, clusters):
+        c1 = min(nlist, c0 + clusters)
+        width = max(width_of[c0:c1])
+        if width == 0:
+            continue
+        i = torch.arange(width, device=dev)
+        keep = i < counts[c0:c1, None]
+        take = torch.where(keep, starts[c0:c1, None].long() + i, 0)  # [clusters, width]
+        r, p = grouped_scan_plain(
+            queries[take.reshape(-1)], vectors[c0 * cmax : c1 * cmax],
+            a[c0 * cmax : c1 * cmax], b[c0 * cmax : c1 * cmax], width, cmax,
+        )
+        rank[take[keep]] = r.view(c1 - c0, width, LANES)[keep]
+        row[take[keep]] = p.view(c1 - c0, width, LANES)[keep] + c0 * cmax
+    return rank, row
+
+
+def grouped_scan_pairs(
+    queries: torch.Tensor,
+    vectors: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    *,
+    cmax: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The grouped scan over a compact pair list (``compact_pairs``): per
+    scanned pair and lane, the minimum rank over its cluster's rows and
+    that row. Rows of pairs that are not scanned are left unwritten (CUDA)
+    or hold INVALID_BIAS and -1 (CPU). Rows are float with queries of
+    their dtype, or int8 (I8 storage) with bf16 queries. CPU tensors take
+    the plain version, CUDA tensors csrc/grouped_scan.cu's compact entry,
+    whose work is the scanned pairs: its grid follows B * nprobe, never
+    the slot budget."""
+    check_scan_inputs(queries, vectors, a, b, i8_rows=True)
+    npos, dp = vectors.shape
+    nlist = npos // cmax
+    if cmax % LANES or npos != nlist * cmax:
+        raise ValueError(
+            f"grouped scan shapes: vectors {npos} rows for cmax {cmax} (a multiple of {LANES})"
+        )
+    for name, t in (("starts", starts), ("counts", counts)):
+        if t.shape != (nlist,) or t.dtype != torch.int32 or t.device != vectors.device:
+            raise ValueError(f"{name} must be [{nlist}] int32 on {vectors.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if vectors.device.type == "cpu":
+        return grouped_scan_pairs_plain(queries, vectors, a, b, starts, counts, cmax)
+    require_cuda(vectors)
+    n_pairs = queries.shape[0]
+    rank = torch.empty((n_pairs, LANES), dtype=torch.float32, device=vectors.device)
+    row = torch.empty((n_pairs, LANES), dtype=torch.int32, device=vectors.device)
+    if nlist and n_pairs:
+        # the kernel's scratch: each cluster's first query tile and the total,
+        # then the cluster of every tile (at most ceil(P / 16) + nlist tiles)
+        tiles = torch.empty((2 * nlist + 1 + -(-n_pairs // 16),), dtype=torch.int32, device=vectors.device)
+        kernels.launch(
+            "vst_grouped_scan_pairs",
+            [queries, vectors, a, b, starts, counts, tiles, rank, row],
+            [nlist, cmax, dp, kernels.DTYPE_CODES[vectors.dtype], n_pairs],
+        )
+        with kernels.count_lock:
+            grouped_scan_pairs.launches += 1
+            grouped_scan.launches_by[str(vectors.dtype).removeprefix("torch."), PAIRS] += 1
+    return rank, row
+
+
+grouped_scan_pairs.launches = 0
 
 
 # -- search ------------------------------------------------------------------------
@@ -333,20 +439,17 @@ def regroup_pairs(
     nlist: int,
     s: int,
 ):
-    """Regroup (query, cluster) pairs into per-cluster query slots.
+    """Regroup (query, cluster) pairs into the dense slot plane of the
+    JAX package's kernel (``grouped_scan``): s query slots a cluster.
 
     Returns (qtab [nlist*s] query index per slot, filled [nlist*s] bool,
     row_of_pair [B, nprobe] slot row or -1 for dropped/sentinel pairs).
     Pairs rank within their cluster first-come by pair index (b-major), a
-    stable sort; the first ``s`` win the cluster's slots."""
+    stable sort; the first ``s`` win the cluster's slots. The search path
+    takes ``compact_pairs``, which drops the same pairs."""
     b, nprobe = probes.shape
     dev = probes.device
-    pairs_c = probes.reshape(-1)
-    sc, sidx = torch.sort(pairs_c, stable=True)
-    idx = torch.arange(sc.shape[0], device=dev)
-    is_new = torch.ones_like(sc, dtype=torch.bool)
-    is_new[1:] = sc[1:] != sc[:-1]
-    rank = idx - torch.cummax(torch.where(is_new, idx, 0), dim=0).values
+    sidx, sc, rank = _rank_in_run(probes.reshape(-1))
     ok = (rank < s) & (sc < nlist)
     row = sc * s + torch.clamp(rank, max=s - 1)
     plane = torch.zeros((nlist * s + 1,), dtype=torch.long, device=dev)
@@ -355,6 +458,40 @@ def regroup_pairs(
     row_of_pair = torch.full((b * nprobe,), -1, dtype=torch.long, device=dev)
     row_of_pair[sidx] = torch.where(ok, row, -1)
     return torch.clamp(plane - 1, min=0), plane > 0, row_of_pair.view(b, nprobe)
+
+
+def compact_pairs(
+    probes: torch.Tensor,  # [B, nprobe] cluster ids (sentinel >= nlist)
+    *,
+    nlist: int,
+    s: int,
+):
+    """The (query, cluster) pairs in (cluster, arrival) order, for
+    ``grouped_scan_pairs``: the stable sort of ``regroup_pairs``, without
+    its slot plane.
+
+    Returns (qidx [B*nprobe] i64 the query of each sorted pair, starts
+    [nlist] i32 the sorted position of each cluster's first pair, counts
+    [nlist] i32 the pairs a cluster scans, min(its pairs, s), row_of_pair
+    [B, nprobe] i64 the pair's sorted position if it won one of its
+    cluster's first ``s`` places, else -1). A kept pair's dense slot is
+    c * s + (its position - starts[c]), so the same pairs drop as in
+    ``regroup_pairs`` and the JAX engine. Shapes depend on B and nprobe
+    only: no host synchronisation."""
+    b, nprobe = probes.shape
+    dev = probes.device
+    sidx, sc, rank = _rank_in_run(probes.reshape(-1))
+    ok = (rank < s) & (sc < nlist)
+    # sentinel pairs (>= nlist) sort last, past every cluster's run
+    bounds = torch.searchsorted(
+        sc, torch.arange(nlist + 1, dtype=sc.dtype, device=dev), out_int32=True
+    )
+    starts = bounds[:-1]
+    counts = torch.clamp(bounds[1:] - starts, max=s)
+    pos = torch.arange(sc.shape[0], device=dev)
+    row_of_pair = torch.full((b * nprobe,), -1, dtype=torch.long, device=dev)
+    row_of_pair[sidx] = torch.where(ok, pos, -1)
+    return sidx // nprobe, starts, counts, row_of_pair.view(b, nprobe)
 
 
 def ivf_candidates(
@@ -372,10 +509,12 @@ def ivf_candidates(
     spherical: bool,
     probes: torch.Tensor | None = None,  # [B, nprobe] precomputed (sharded path)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Probe -> regroup -> grouped scan -> merge. Returns (rank [B, k] f32
-    ascending, pos [B, k] i32 cluster-major positions or -1, dropped [B]
-    i32: live (query, cluster) pairs that lost their cluster's slot race
-    and were not scanned; the engine re-dispatches those queries).
+    """Probe -> compact pairs -> grouped scan of the pairs -> merge.
+    Returns (rank [B, k] f32 ascending, pos [B, k] i32 cluster-major
+    positions or -1, dropped [B] i32: live (query, cluster) pairs that
+    lost their cluster's race for its first ``s`` places and were not
+    scanned; the engine re-dispatches those queries). The answers are
+    the JAX package's, whose kernel scanned the dense slot plane.
 
     Given ``probes`` (cluster ids local to ``vectors``, the sentinel >=
     nlist for a pair another shard owns), the probe is skipped and
@@ -384,30 +523,27 @@ def ivf_candidates(
     if probes is None:
         nprobe = min(nprobe, nlist)
         probes = ivf_probe(centroids, queries, q_live, nprobe=nprobe, spherical=spherical)
-    qtab, filled, row_of_pair = regroup_pairs(probes, nlist=nlist, s=s)
+    qidx, starts, counts, row_of_pair = compact_pairs(probes, nlist=nlist, s=s)
     dropped = ((row_of_pair < 0) & (probes < nlist)).sum(dim=1, dtype=torch.int32)
     dropped = torch.where(q_live, dropped, 0)
 
-    rank_out, row_out = grouped_scan(
-        queries[qtab].contiguous(), vectors, a, b, s=s, cmax=cmax
-    )
-    best_rank, best_pos = merge_candidates(rank_out, row_out, filled, row_of_pair, k=k)
+    rank_out, row_out = grouped_scan_pairs(queries[qidx], vectors, a, b, starts, counts, cmax=cmax)
+    best_rank, best_pos = merge_candidates(rank_out, row_out, row_of_pair, k=k)
     return best_rank, best_pos, dropped
 
 
 def merge_candidates(
-    rank_out: torch.Tensor,  # [nlist*s, 128] f32 per-slot candidates
-    row_out: torch.Tensor,  # [nlist*s, 128] i32 their cluster-major rows
-    filled: torch.Tensor,  # [nlist*s] bool
-    row_of_pair: torch.Tensor,  # [B, nprobe] slot row or -1
+    rank_out: torch.Tensor,  # [rows, 128] f32 candidates of each scanned slot or pair
+    row_out: torch.Tensor,  # [rows, 128] i32 their cluster-major rows
+    row_of_pair: torch.Tensor,  # [B, nprobe] the pair's row of rank_out, or -1
     *,
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each query's nprobe * 128 candidates -> exact top-k (rank [B, k] f32
-    ascending, pos [B, k] i32 or -1). Only the winners' rows are gathered
-    from ``row_out``."""
+    ascending, pos [B, k] i32 or -1). Only rows that ``row_of_pair``
+    names are read (a scan writes no other), and only the winners' rows
+    are gathered from ``row_out``."""
     nq, nprobe = row_of_pair.shape
-    rank_out = torch.where(filled[:, None], rank_out, INVALID_BIAS)
     safe_row = torch.clamp(row_of_pair, min=0)  # [B, nprobe]
     cand = torch.where(
         (row_of_pair >= 0)[:, :, None], rank_out[safe_row], INVALID_BIAS

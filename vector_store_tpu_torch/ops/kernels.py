@@ -44,6 +44,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.int8
 _ENTRY_POINTS = {
     "vst_fused_scan": (6, 6),
     "vst_grouped_scan": (6, 7),
+    "vst_grouped_scan_pairs": (9, 6),
     "vst_partition_scan": (11, 7),
 }
 
