@@ -1,0 +1,8 @@
+"""The IVF compact grouped scan's share of its roofline over the traced
+span, % (``benchmark/roofline.py``; kernel time from the device trace)."""
+
+from benchmark import readers
+
+
+def read(r: dict) -> float | None:
+    return readers.pairs_roofline(r)
