@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from vector_store_tpu_torch.core.types import Quantization, SpaceType
-from vector_store_tpu_torch.utils import hotpath
+from vector_store_tpu_torch.utils import hotpath, spans
 from vector_store_tpu_torch.engine.flat import (
     FlatDeviceIndex,
     PendingSearch,
@@ -1096,7 +1096,9 @@ class IvfDeviceIndex:
 
     @hotpath.measure
     def search_collect(self, pending: PendingSearch) -> list[SearchResult]:
-        return self._postprocess(pending, pull_packed(pending.packed))
+        with spans.span("ivf.pull"):
+            host = pull_packed(pending.packed)
+        return self._postprocess(pending, host)
 
     def collect_many(self, pendings: list[PendingSearch]) -> list[list[SearchResult]]:
         return [self.search_collect(p) for p in pendings]

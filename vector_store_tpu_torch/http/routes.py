@@ -30,6 +30,7 @@ from vector_store_tpu_torch.service.node_state import (
     node_status_http,
 )
 from vector_store_tpu_torch.service.vs_index import DimensionMismatch
+from vector_store_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 
@@ -422,37 +423,44 @@ async def post_index_ann(request: web.Request) -> web.Response:
     denied = check_insecure_tls(st, request)
     if denied is not None:
         return denied
+    spans.sync_hooks()
     try:
-        body = await request.json()
+        text = await request.text()  # read before the span: it may wait for the body
     except Exception:
         return _err(400, "malformed JSON body")
-    vector = body.get("vector")
-    if not isinstance(vector, list) or not all(
-        isinstance(x, (int, float)) and not isinstance(x, bool) for x in vector
-    ):
-        return _err(400, "missing or malformed 'vector'")
-    limit = body.get("limit", 1)
-    try:
-        limit = int(Limit(int(limit)))
-    except (ValueError, TypeError):
-        return _err(400, "invalid 'limit'")
+    with spans.span("http.parse"):
+        try:
+            body = json.loads(text)
+        except Exception:
+            return _err(400, "malformed JSON body")
+        vector = body.get("vector")
+        if not isinstance(vector, list) or not all(
+            isinstance(x, (int, float)) and not isinstance(x, bool) for x in vector
+        ):
+            return _err(400, "missing or malformed 'vector'")
+        limit = body.get("limit", 1)
+        try:
+            limit = int(Limit(int(limit)))
+        except (ValueError, TypeError):
+            return _err(400, "invalid 'limit'")
 
     status, answer = await ann_answer(st, keyspace, index_name, vector, limit, body.get("filter"))
     if status != 200:
         return _answer(status, answer)
     pk_columns, result = answer
-    try:
-        primary_keys = collect_primary_keys(pk_columns, [pk for pk, _ in result])
-    except ValueError as e:
-        return _err(500, str(e))
-    distances = [d for _, d in result]
-    return _json(
-        {
-            "primary_keys": primary_keys,
-            "distances": [saturate_f32(d.value) for d in distances],
-            "similarity_scores": [saturate_f32(similarity_score(d)) for d in distances],
-        }
-    )
+    with spans.span("http.encode"):
+        try:
+            primary_keys = collect_primary_keys(pk_columns, [pk for pk, _ in result])
+        except ValueError as e:
+            return _err(500, str(e))
+        distances = [d for _, d in result]
+        return _json(
+            {
+                "primary_keys": primary_keys,
+                "distances": [saturate_f32(d.value) for d in distances],
+                "similarity_scores": [saturate_f32(similarity_score(d)) for d in distances],
+            }
+        )
 
 
 def unservable_answer(st: AppState, keyspace: str, index_name: str, best) -> tuple[int, object] | None:

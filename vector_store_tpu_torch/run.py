@@ -41,6 +41,7 @@ from vector_store_tpu_torch.http.routes import AppState, build_app
 from vector_store_tpu_torch.service.engine import Engine
 from vector_store_tpu_torch.service.memory import MemoryGovernor
 from vector_store_tpu_torch.service.monitor_indexes import MonitorIndexes
+from vector_store_tpu_torch.utils import spans
 
 logger = logging.getLogger(__name__)
 
@@ -204,6 +205,8 @@ async def build_service(
         app=app,
     )
     service._conn_watch = conn_watch
+    if spans.recording():  # VECTOR_STORE_HOTPATH=1: hook this loop and the collector now
+        spans.start()
     return service
 
 

@@ -77,7 +77,7 @@ from vector_store_tpu_torch.table import (
     RemoveValue,
     Table,
 )
-from vector_store_tpu_torch.utils import hotpath
+from vector_store_tpu_torch.utils import hotpath, spans
 from vector_store_tpu_torch.engine.flat import (
     GLOBAL_RESERVE_INCREMENT,
     LOCAL_RESERVE_INCREMENT,
@@ -264,6 +264,27 @@ class _SearchRequest:
     partition: Optional[PartitionId] = None  # local indexes: the query's partition
     sig: Optional[tuple] = None  # the restrictions' signature (cache key)
     masked: bool = False  # rides the device-masked regime
+    # utils/spans while recording, else 0: when the request was submitted
+    # (or requeued) and when its answer was handed to the loop
+    t_submit: int = 0
+    t_ready: int = 0
+
+
+def _stamped(step, arg):
+    """Run a window's measured ``step`` in the worker thread, with the
+    window's start on the clock while recording (else 0), taken outside
+    it so that its hotpath time holds no span's cost."""
+    t = spans.now()
+    return t, step(arg)
+
+
+def _record_queue_waits(batches: list[list[_SearchRequest]], t_start: int) -> None:
+    """Each request's wait from its submission or requeue to ``t_start``,
+    its window's start (utils/spans, while recording): added on the loop,
+    once a window."""
+    if t_start:
+        ts = [req.t_submit for batch in batches for req in batch if req.t_submit]
+        spans.add("actor.queue_wait", len(ts), len(ts) * t_start - sum(ts))
 
 
 def _restriction_sig(restrictions: list[Restriction]) -> tuple:
@@ -396,13 +417,16 @@ class VsIndexActor:
                 f"expected {self.dimensions}"
             )
         fut = asyncio.get_running_loop().create_future()
-        req = _SearchRequest(v, limit, restrictions or None, fut, partition=partition)
+        req = _SearchRequest(v, limit, restrictions or None, fut, partition=partition, t_submit=spans.now())
         if req.restrictions:
             # a filter seen before starts at the step it needed last time
             req.sig = _restriction_sig(req.restrictions)
             req.oversample = self._ladder_cache.get(req.sig, 1)
         await self._search_queue.put(req)
-        return await fut
+        result = await fut
+        if req.t_ready:
+            spans.record("actor.wake", req.t_ready, time.perf_counter_ns())
+        return result
 
     async def _run(self) -> None:
         """Scheduling loop: dispatch searches first (pipelined), apply aged
@@ -441,7 +465,7 @@ class VsIndexActor:
             self._modify_event.set()  # wake the idle wait
 
         def launch_legacy(batch: list[_SearchRequest]) -> None:
-            fut = loop.run_in_executor(None, self._execute_search_batch, batch)
+            fut = loop.run_in_executor(None, _stamped, self._execute_search_batch, batch)
 
             def _done(f: asyncio.Future, batch=batch) -> None:
                 inflight.discard(f)
@@ -450,12 +474,14 @@ class VsIndexActor:
                     for req in batch:
                         if not req.future.done():
                             req.future.set_exception(exc)
+                elif not f.cancelled():
+                    _record_queue_waits([batch], f.result()[0])
 
             fut.add_done_callback(_done)
             inflight.add(fut)
 
         def launch(batches: list[list[_SearchRequest]]) -> asyncio.Future:
-            fut = loop.run_in_executor(None, self._begin_window, batches)
+            fut = loop.run_in_executor(None, _stamped, self._begin_window, batches)
 
             def _done(f: asyncio.Future, batches=batches) -> None:
                 inflight.discard(f)
@@ -468,7 +494,9 @@ class VsIndexActor:
                             if not req.future.done():
                                 req.future.set_exception(exc)
                     return
-                self._inflight_collects.extend(f.result())
+                t_start, collects = f.result()
+                _record_queue_waits(batches, t_start)
+                self._inflight_collects.extend(collects)
                 if self._collector is None or self._collector.done():
                     self._collector = loop.create_task(self._collect_loop())
 
@@ -782,9 +810,14 @@ class VsIndexActor:
             self._finish_terminal(terminal)
         if loop is not None and (finished or requeue):
             # one loop wakeup for the whole collect
-            loop.call_soon_threadsafe(self._finish_many, finished, requeue)
+            loop.call_soon_threadsafe(self._finish_many, finished, requeue, spans.now())
 
-    def _finish_many(self, finished, requeue) -> None:
+    def _finish_many(self, finished, requeue, t_ready: int = 0) -> None:
+        if t_ready:  # recording: the hand-off's stamp, a requeue's new wait
+            for req, _ in finished:
+                req.t_ready = t_ready
+            for req in requeue:
+                req.t_submit = t_ready
         for req, result in finished:
             if not req.future.done():
                 req.future.set_result(result)
@@ -1016,6 +1049,7 @@ class VsIndexActor:
         return Distance(d, st)
 
     def _finish(self, req: _SearchRequest, result) -> None:
+        req.t_ready = spans.now()
         loop = req.future.get_loop()
         loop.call_soon_threadsafe(
             lambda: req.future.set_result(result) if not req.future.done() else None
