@@ -41,7 +41,7 @@ from vector_store_tpu_torch.http.routes import AppState, build_app
 from vector_store_tpu_torch.service.engine import Engine
 from vector_store_tpu_torch.service.memory import MemoryGovernor
 from vector_store_tpu_torch.service.monitor_indexes import MonitorIndexes
-from vector_store_tpu_torch.utils import spans
+from vector_store_tpu_torch.utils import heap, spans
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +73,28 @@ class Service:
             await session.stop()
         if self.http_server is not None:
             await self.http_server.stop()
+        heap.release(self)
+
+
+class _Internals(Internals):
+    """The debug counters, with the heap's (``utils/heap``) added."""
+
+    def counters(self) -> dict[str, int]:
+        return dict(sorted({**super().counters(), **heap.counters()}.items()))
+
+
+class _NodeState(NodeState):
+    """Tells ``utils/heap`` when a vector index's full scan starts and
+    when an index's last row reached its table (FTS indexes too)."""
+
+    def full_scan_started(self, metadata) -> None:
+        super().full_scan_started(metadata)
+        if metadata.vs_options is not None:
+            heap.scan_started(metadata)
+
+    def full_scan_finished(self, metadata) -> None:
+        super().full_scan_finished(metadata)
+        heap.scan_finished(metadata)
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -127,8 +149,8 @@ async def build_service(
     config = config or load_config()
     device = resolve_device(device)
 
-    node_state = NodeState()
-    internals = Internals()
+    node_state = _NodeState()
+    internals = _Internals()
     memory = MemoryGovernor(device, limit_bytes=config.memory_limit)
     metrics = Metrics()
     indexes = Indexes()
@@ -205,6 +227,7 @@ async def build_service(
         app=app,
     )
     service._conn_watch = conn_watch
+    heap.acquire(service)
     if spans.recording():  # VECTOR_STORE_HOTPATH=1: hook this loop and the collector now
         spans.start()
     return service

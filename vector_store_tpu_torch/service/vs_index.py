@@ -77,7 +77,7 @@ from vector_store_tpu_torch.table import (
     RemoveValue,
     Table,
 )
-from vector_store_tpu_torch.utils import hotpath, spans
+from vector_store_tpu_torch.utils import heap, hotpath, spans
 from vector_store_tpu_torch.engine.flat import (
     GLOBAL_RESERVE_INCREMENT,
     LOCAL_RESERVE_INCREMENT,
@@ -361,6 +361,7 @@ class VsIndexActor:
 
     async def stop(self) -> None:
         self._stopped = True
+        heap.scan_dropped(self.metadata)
         self._modify_event.set()
         if self._task:
             self._task.cancel()
@@ -575,6 +576,8 @@ class VsIndexActor:
                 except Exception:
                     # a poisoned batch must not kill the actor loop
                     logger.exception("dropping modify batch of %d ops after failure", len(ops))
+                if not self._modify_queue:
+                    heap.scan_applied(self.metadata)
                 maintain_recheck = 0.0  # the batch may have made a rebuild due
                 whole_due = whole_maintain
                 continue
@@ -601,6 +604,8 @@ class VsIndexActor:
                 continue
 
             # idle: wait for work (clear-then-recheck against lost wakeups)
+            if not self._modify_queue:
+                heap.scan_applied(self.metadata)  # a scan that brought no rows
             self._modify_event.clear()
             if not self._search_queue.empty() or (self._modify_queue and modify_ok()):
                 continue
