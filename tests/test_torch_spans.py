@@ -7,8 +7,11 @@ adds one ``http.parse``, ``actor.queue_wait``, ``actor.wake`` and
 ``http.encode``, inside the client's round trip; a filtered request that
 climbs the post-filter ladder waits once a pass; a window's waits are
 added once, from its start; the IVF engine's ``search_collect`` holds
-``ivf.pull``; a collection gives ``host.gc.gen<n>``, even one that starts
-inside hotpath's lock; an idle loop gives ``loop.select``; threads
+``ivf.pull``; a built I8 engine's search adds ``ivf.queries``,
+``ivf.delta_begin`` and ``ivf.rescore`` once each, and
+``ivf.rescore_numpy`` only where the native rescore gives nothing; a
+collection gives ``host.gc.gen<n>``, even one that starts inside
+hotpath's lock; an idle loop gives ``loop.select``; threads
 recording at once lose no span; ``start()`` and ``stop()`` are
 idempotent; the hooks follow hotpath's switch (at the next ANN request,
 or when a service is built while it is on); a malformed body is still
@@ -217,6 +220,77 @@ def test_ivf_pull_inside_search_collect(rec):
     calls, ms = added(before, after, "ivf.pull")
     _, collect_ms = added(before, after, "ivf.IvfDeviceIndex.search_collect")
     assert calls == 1 and 0 <= ms <= collect_ms <= (t1 - t0) / 1e6
+
+
+I8_SPANS = ("ivf.queries", "ivf.delta_begin", "ivf.rescore")
+
+
+def built_i8(monkeypatch, n=1024, extra=64, d=64):
+    """A cosine I8 IVF engine whose main region is built over n rows, with
+    ``extra`` rows written after the build in its lossy delta."""
+    import vector_store_tpu_torch.engine.ivf as ivf
+
+    monkeypatch.setattr(ivf, "DELTA_MARGIN", 4096)  # the CPU scans the delta's whole capacity
+    rng = np.random.default_rng(4)
+    idx = IvfDeviceIndex(d, space_type=SpaceType.COSINE, quantization=Quantization.I8,
+                         device=torch.device("cpu"), min_build=n, initial_capacity=2048)
+    idx.upsert_batch(np.arange(n), np.ones(n, np.int32), rng.normal(size=(n, d)).astype(np.float32))
+    assert idx.maintain() and idx.main_vecs is not None
+    idx.upsert_batch(np.arange(n, n + extra), np.ones(extra, np.int32),
+                     rng.normal(size=(extra, d)).astype(np.float32))
+    return idx, rng.normal(size=(8, d)).astype(np.float32)
+
+
+def test_i8_ivf_window_records_its_spans_once(rec, monkeypatch):
+    """One search of a built I8 engine (a window's ``search_begin`` and
+    ``search_collect``) adds ``ivf.queries``, ``ivf.delta_begin`` and
+    ``ivf.rescore`` once each while recording, each inside the call that
+    holds it, and nothing while off."""
+    idx, queries = built_i8(monkeypatch)
+    before = settled()
+    assert len(idx.search(queries, 5)) == 8
+    off = settled()
+    hotpath.enable()
+    pending = idx.search_begin(queries, 5)
+    assert len(idx.search_collect(pending)) == 8
+    after = settled()
+    hotpath.disable()
+    for name in I8_SPANS:
+        assert added(before, off, name) == (0, 0.0), name
+    _, begin_ms = added(off, after, "ivf.IvfDeviceIndex.search_begin")
+    _, collect_ms = added(off, after, "ivf.IvfDeviceIndex.search_collect")
+    got = {name: added(off, after, name) for name in I8_SPANS}
+    assert all(calls == 1 for calls, _ in got.values()), got
+    assert got["ivf.queries"][1] + got["ivf.delta_begin"][1] <= begin_ms
+    assert got["ivf.rescore"][1] <= collect_ms
+    assert added(off, after, "ivf.rescore_numpy") == (0, 0.0)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_rescore_numpy_only_without_native(rec, monkeypatch, native):
+    """``ivf.rescore_numpy`` marks the NumPy gather, taken only where
+    ``native_rescore`` gives nothing; the distances agree either way."""
+    import vector_store_tpu_torch.engine.rescore as rescore
+
+    idx, queries = built_i8(monkeypatch)
+    want = [r.distances for r in idx.search(queries, 5)]
+    if native:
+        def stub(vecs, ids, q, space):  # a native result, as the library gives it
+            v = vecs[np.maximum(ids, 0)]
+            return (0.5 * ((q[:, None, :] - v) ** 2).sum(-1)).astype(np.float32)
+    else:
+        def stub(vecs, ids, q, space):
+            return None
+    monkeypatch.setattr(rescore, "native_rescore", stub)
+    before = settled()
+    hotpath.enable()
+    got = idx.search(queries, 5)
+    after = settled()
+    hotpath.disable()
+    assert added(before, after, "ivf.rescore_numpy")[0] == (0 if native else 1)
+    assert added(before, after, "ivf.rescore")[0] == 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.distances, w, atol=1e-5)
 
 
 def test_collection_records_host_gc(rec):

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from vector_store_tpu_torch.core.types import Quantization, SpaceType
-from vector_store_tpu_torch.utils import hotpath
+from vector_store_tpu_torch.utils import hotpath, spans
 from vector_store_tpu_torch.ops.distance import (
     pairwise_distance,
     prepare_queries,
@@ -195,13 +195,14 @@ def ids_postprocess(
     q = q_f32[:, :dims]
     d = native_rescore(vecs_host, i, q, space)
     if d is None:  # no native toolchain / layout mismatch: numpy fallback
-        v = vecs_host[safe]  # [b, k, D]
-        if space is SpaceType.EUCLIDEAN:
-            d = ((q[:, None, :] - v) ** 2).sum(-1)
-        else:
-            d = 1.0 - np.einsum("bd,bkd->bk", q, v)
-            if space is SpaceType.COSINE:
-                d = np.clip(d, 0.0, 2.0)
+        with spans.span("ivf.rescore_numpy"):
+            v = vecs_host[safe]  # [b, k, D]
+            if space is SpaceType.EUCLIDEAN:
+                d = ((q[:, None, :] - v) ** 2).sum(-1)
+            else:
+                d = 1.0 - np.einsum("bd,bkd->bk", q, v)
+                if space is SpaceType.COSINE:
+                    d = np.clip(d, 0.0, 2.0)
     e = epochs_host[safe]
     valid = i >= 0
     d = np.where(valid, d, np.inf).astype(np.float32, copy=False)

@@ -1012,13 +1012,18 @@ class IvfDeviceIndex:
         s: int,
         main_b: torch.Tensor | None = None,
         delta_allow: torch.Tensor | None = None,
+        t_begin: int = 0,
     ) -> torch.Tensor:
         """Both regions' device search for normalized f32 queries ->
         [B, k_fetch + 1] i32 (slots, then the dropped-pair count). Before
         the first build the delta region answers alone. ``main_b`` (the
         main region's bias; ``self.main_b`` if None) and ``delta_allow``
-        (the delta's position mask) carry a search's slot filter."""
+        (the delta's position mask) carry a search's slot filter.
+        ``t_begin``, the search's start on the spans' clock (0: none),
+        closes the ``ivf.queries`` span once the queries are uploaded."""
         qs = self._main_queries(queries)
+        if t_begin:
+            spans.record("ivf.queries", t_begin, time.perf_counter_ns())
         b = queries.shape[0]
         euclid = self.space_type is SpaceType.EUCLIDEAN
         q2 = np.zeros((b,), dtype=np.float32)
@@ -1043,9 +1048,10 @@ class IvfDeviceIndex:
             # float storage shares one query upload between the regions;
             # the I8 delta takes I8 codes and bf16 rescore queries of its own
             shared = None if self.quantization is Quantization.I8 else qs
-            delta = self._delta.search_begin(
-                queries, k_fetch, allow_mask=delta_allow, raw=True, queries_dev=shared
-            )
+            with spans.span("ivf.delta_begin"):
+                delta = self._delta.search_begin(
+                    queries, k_fetch, allow_mask=delta_allow, raw=True, queries_dev=shared
+                )
             regions.append((delta.packed, delta.rows, self._delta_pos2slot, delta.is_dist))
         return _merge_regions(regions, q2, dropped, euclid=euclid, k_out=k_fetch)
 
@@ -1069,6 +1075,7 @@ class IvfDeviceIndex:
         partitions: np.ndarray | None = None,
         allow_mask: "np.ndarray | AllowMaskHandle | None" = None,
     ) -> PendingSearch:
+        t_begin = spans.now()
         require_global(partitions)
         queries = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         if self.space_type is SpaceType.COSINE:
@@ -1086,7 +1093,7 @@ class IvfDeviceIndex:
                 packed=delta.packed, rows=slots, b_real=queries.shape[0], k=k, is_dist=True
             )
         ids = self._candidates(
-            queries, k_fetch, self._serving_s(queries.shape[0]), main_b, delta_allow
+            queries, k_fetch, self._serving_s(queries.shape[0]), main_b, delta_allow, t_begin
         )
         # the filter rides along: a retry of dropped pairs scans the same rows
         return PendingSearch(
@@ -1140,15 +1147,16 @@ class IvfDeviceIndex:
             return dist_results(host[:b_real], pull_packed(pending.rows)[:b_real], self._epochs_host)
         host = host[:b_real]
         dropped = host[:, -1]
-        results = ids_postprocess(
-            self._vecs_host,
-            self._epochs_host,
-            self.space_type,
-            self.dimensions,
-            host[:, :-1],
-            pending.q_f32[:b_real],
-            keep_order=not self.rescoring,
-        )
+        with spans.span("ivf.rescore"):
+            results = ids_postprocess(
+                self._vecs_host,
+                self._epochs_host,
+                self.space_type,
+                self.dimensions,
+                host[:, :-1],
+                pending.q_f32[:b_real],
+                keep_order=not self.rescoring,
+            )
         if self.oversample > 1:
             results = [r.truncated(pending.k) for r in results]
         bad = np.flatnonzero(dropped > 0)
@@ -1182,10 +1190,11 @@ class IvfDeviceIndex:
             ))
         for idx, q, ids in chunks:
             host = pull_packed(ids)
-            fixed = ids_postprocess(
-                self._vecs_host, self._epochs_host, self.space_type,
-                self.dimensions, host[:, :-1], q, keep_order=not self.rescoring,
-            )
+            with spans.span("ivf.rescore"):
+                fixed = ids_postprocess(
+                    self._vecs_host, self._epochs_host, self.space_type,
+                    self.dimensions, host[:, :-1], q, keep_order=not self.rescoring,
+                )
             for j, i in enumerate(idx):
                 results[int(i)] = fixed[j].truncated(k)
 

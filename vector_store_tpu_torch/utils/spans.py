@@ -20,6 +20,15 @@ The spans, by where they are taken:
   resuming, the event loop's lag;
 - ``ivf.pull`` (``engine/ivf.py``): ``search_collect`` blocked on the
   device's answer;
+- ``ivf.queries`` (``engine/ivf.py``): from the start of ``search_begin``
+  to the main region's queries on the device (cosine normalisation, the
+  storage or bf16 conversion, padding, upload); ``ivf.delta_begin``: the
+  delta region's ``search_begin`` (for I8 the lossy scan and its bf16
+  rescore tier); ``ivf.rescore``: the exact f32 ``ids_postprocess`` of
+  the oversampled candidates, in ``_postprocess`` and ``_retry_dropped``;
+- ``ivf.rescore_numpy`` (``engine/flat.py::ids_postprocess``): the NumPy
+  gather, taken only where ``native_rescore`` gives nothing (no native
+  library, or a layout it does not take);
 - ``host.gc.gen0`` / ``gen1`` / ``gen2``: the garbage collector, by
   generation (``gc.callbacks``);
 - ``loop.select``: the serving event loop waiting on its sockets (its
