@@ -13,7 +13,10 @@ tails their tensor-core and register-tiled cores must get right (a row
 length that is 8 mod 16, query tiles cut short, cmax 384 and 640, a group
 with no live row) and at Dp 3072. The B1 Hamming distances and the
 stable top-k, torch calls that take other code on the card (`_int_mm`),
-are held to their CPU results. On a GPU machine run them with
+are held to their CPU results. The lossy delta's exact scan, bounded to
+its written blocks and ranked in one pass, equals the block-by-block walk
+of its whole capacity at the OpenAI-500K I8 cell's shape, bit for bit,
+and so does its bf16 rescore tier. On a GPU machine run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -473,3 +476,43 @@ def test_wrappers_refuse_bad_inputs(cuda):
         ivf.grouped_scan_pairs(torch.zeros((3, 64), device=cuda), v, a, a, starts, starts.cpu(), cmax=512)
     with pytest.raises(ValueError):  # bsel on the host
         ps.partition_scan(v, a, a, torch.zeros((2, 64), device=cuda), torch.zeros(2, dtype=torch.int32), 512)
+
+
+def test_bounded_i8_delta_scan_on_the_card(cuda, monkeypatch):
+    """At the OpenAI-500K I8 cell's delta (131,072 x 1536 int8 slots, 7,000
+    rows written by a build's spill, 256 queries, the 256 candidates of k
+    40) the scan reads 8,192 rows in one pass and answers as the walk of
+    the whole capacity block by block, bit for bit; so does the bf16
+    rescore tier over each one's candidates."""
+    from vector_store_tpu_torch.core.types import Quantization, SpaceType
+    from vector_store_tpu_torch.engine import flat
+    from vector_store_tpu_torch.ops import distance
+
+    rng = np.random.default_rng(21)
+    idx = flat.FlatDeviceIndex(
+        1536, SpaceType.COSINE, Quantization.I8, device=cuda,
+        initial_capacity=131_072, reserve_increment=131_072,
+    )
+    assert (idx.capacity, idx.block_rows) == (131_072, 4096)
+    x = rng.standard_normal((7000, 1536), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    idx.upsert_bulk_device(0, 7000, torch.from_numpy(x).to(cuda), x)
+    idx.remove_batch(np.arange(0, 7000, 13))
+    q = x[rng.integers(0, 7000, 256)] + 0.05 * rng.standard_normal((256, 1536), dtype=np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    qs = idx.query_tensor(q)
+    k = idx.lossy_fetch(40)
+    assert k == 256
+    got = idx._flat_search(qs, k)
+    assert idx.flat_scans() == (8192, 131_072)
+    with monkeypatch.context() as m:
+        m.setattr(flat, "PLAIN_CHUNK_ELEMS", 1)
+        m.setattr(idx, "high", idx.capacity)
+        want = idx._flat_search(qs, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1][:, :200] >= 0).all())
+    rqs, rq_aux = distance.prepare_queries(q, SpaceType.COSINE, Quantization.BF16)
+    rqs, rq_aux = rqs.to(cuda), rq_aux.to(cuda)
+    tier_got = idx._rescore_stage(got[1], rqs, rq_aux, 40)
+    tier_want = idx._rescore_stage(want[1], rqs, rq_aux, 40)
+    assert torch.equal(tier_got[0], tier_want[0]) and torch.equal(tier_got[1], tier_want[1])

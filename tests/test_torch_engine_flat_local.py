@@ -175,8 +175,10 @@ def test_exact_paths_match_jax_xla_paths():
 
 
 def test_masked_scan_keeps_block_memory(monkeypatch):
-    """The masked scan ranks [B, block_rows] at a time and gives the same
-    slots as one whole-capacity product."""
+    """The masked scan ranks whole blocks up to the written mark, as many
+    at a time as keep [B, rows] and the rows' [rows, Dp] within the chunk
+    budget (one pass here; one block at a time under a budget of one
+    block), and gives the same slots as one whole-capacity product."""
     pair, vecs, _ = mutated_pair()
     p = pair.p
     widths = []
@@ -188,13 +190,21 @@ def test_masked_scan_keeps_block_memory(monkeypatch):
 
     monkeypatch.setattr(port_flat, "pairwise_distance", spy)
     q = vecs[[10, 450]]
-    res = p.search(q, 7, partitions=np.array([-1, 0], np.int32))
-    assert set(widths) == {p.block_rows} and len(widths) == p.capacity // p.block_rows
     whole = ((q[:, None, :] - p._vecs_host[None]) ** 2).sum(-1)
     whole[0, ~p._valid_host] = np.inf
     whole[1, ~(p._valid_host & (p._slot_part == 0))] = np.inf
-    for row, r in enumerate(res):
-        np.testing.assert_array_equal(r.slots, np.argsort(whole[row], kind="stable")[:7])
+    extent = -(-p.high // p.block_rows) * p.block_rows
+    assert p.block_rows < extent < p.capacity
+    per_row = max(q.shape[0], p.dp)
+    for budget in (port_flat.PLAIN_CHUNK_ELEMS, per_row * p.block_rows):
+        monkeypatch.setattr(port_flat, "PLAIN_CHUNK_ELEMS", budget)
+        widths.clear()
+        res = p.search(q, 7, partitions=np.array([-1, 0], np.int32))
+        assert sum(widths) == extent
+        assert all(w % p.block_rows == 0 and per_row * w <= budget for w in widths)
+        for row, r in enumerate(res):
+            np.testing.assert_array_equal(r.slots, np.argsort(whole[row], kind="stable")[:7])
+    assert widths == [p.block_rows] * (extent // p.block_rows)
 
 
 def test_same_partition_update_is_found_by_the_kernel_path():

@@ -472,11 +472,15 @@ async def test_internals_counters():
             await stop(service, client)
 
     jax, port = await twin(case)
-    # the port adds the heap's two counters (utils/heap), which the JAX package has not
+    # the port adds the heap's two counters (utils/heap) and the exact
+    # scans' two (run.py), which the JAX package has not
     status, counters = port
     heap_keys = {k for k in counters if k.startswith("host-gc-")}
     assert heap_keys == {"host-gc-freezes", "host-gc-frozen-objects"}
-    assert_same((status, {k: v for k, v in counters.items() if k not in heap_keys}), jax)
+    scan_keys = {k for k in counters if k.startswith("flat-scan-")}
+    assert scan_keys == {"flat-scan-rows", "flat-scan-capacity-rows"}
+    port_only = heap_keys | scan_keys
+    assert_same((status, {k: v for k, v in counters.items() if k not in port_only}), jax)
     assert counters["test-counter"] == 3
 
 

@@ -20,8 +20,9 @@ distances from its f32 mirror of every stored vector and attaches epochs
 usearch.rs:1067-1154).
 
 Lossy storage (I8, B1) has no fused scan (the JAX package ran it as XLA,
-not Pallas): its search is an exact block-wise scan (``_flat_search``:
-integer products for I8, Hamming distances for B1) that fetches
+not Pallas): its search is an exact scan of the slots ever written
+(``_flat_search``: integer products for I8, Hamming distances for B1,
+ranked in one pass where the batch and the extent fit) that fetches
 ``oversample`` x k candidates (k and the count rounded up to the JAX
 package's k buckets), re-ranked by the bf16 rescore tier
 (``rescore_vectors`` [cap, Dp'] bf16 and ``rescore_aux``,
@@ -304,6 +305,11 @@ class FlatDeviceIndex:
             )
             self.rescore_aux = torch.zeros((cap,), dtype=torch.float32, device=self.device)
         self._live = 0
+        self.high = 0  # slots at or past it were never written
+        # rows the exact scan read and the capacity it was offered, summed
+        # over its calls (``flat_scans``)
+        self.scan_rows = 0
+        self.scan_capacity_rows = 0
         self._valid_host = np.zeros((cap,), dtype=bool)
         self._epochs_host = np.full((cap,), -1, dtype=np.int32)
         # the f32 mirror feeds the exact distances of float storage only
@@ -440,6 +446,7 @@ class FlatDeviceIndex:
             keep = np.sort(slots.size - 1 - rev_first)
             slots, epochs, vectors, parts = slots[keep], epochs[keep], vectors[keep], parts[keep]
         self.reserve(int(slots.max()))
+        self.high = max(self.high, int(slots.max()) + 1)
         was_valid = self._valid_host[slots]
         if self.normalize:
             vectors = normalize_rows(vectors)
@@ -485,6 +492,7 @@ class FlatDeviceIndex:
             rows = rows / torch.clamp(rows.norm(dim=-1, keepdim=True), min=1e-30)
             rh = normalize_rows(rh)
         self._store(slice(lo, hi), rows)
+        self.high = max(self.high, int(hi))
         if partitions is not None:
             parts = np.asarray(partitions, dtype=np.int64)
             self.parts[lo:hi] = torch.from_numpy(parts.astype(np.int32)).to(self.device)
@@ -743,6 +751,7 @@ class FlatDeviceIndex:
             self.rescore_aux = torch.zeros((cap,), dtype=torch.float32, device=dev)
             self.rescore_aux[:n] = torch.from_numpy(np.array(state["rescore_aux"], dtype=np.float32)).to(dev)
         self._live = int(valid.sum())
+        self.high = int(np.flatnonzero(valid)[-1]) + 1 if valid.any() else 0
         self._slot_part = _grown(np.asarray(state["_slot_part"], dtype=np.int64), cap, -1)
         self._slot_pos = _grown(np.asarray(state["_slot_pos"], dtype=np.int32), cap, -1)
         self.parts = torch.tensor(self._slot_part.astype(np.int32), device=dev)
@@ -912,23 +921,32 @@ class FlatDeviceIndex:
         psel: torch.Tensor | None = None,
         b: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Exact scan of the whole capacity (the JAX package's
-        _flat_search), block by block: [B, block_rows] storage-precision
-        distances per step and a running top-k (for lossy storage with ties
-        to the lower slot, as lax.top_k breaks them); ``psel`` [B] masks
-        each query to its partition (-1 = every partition); rows whose bias
-        (``b``, by default ``self.b``) is INVALID_BIAS are skipped. Returns
-        (dist [B, k] f32 ascending, inf for empty; slot [B, k] i32 or -1)."""
+        """Exact scan (the JAX package's _flat_search) of the blocks up to
+        ``high``: every slot past it has the invalid bias, so the answer is
+        that of the whole capacity. The extent is ranked a chunk at a time,
+        each chunk as many whole blocks as keep both its [B, rows]
+        storage-precision distances and its rows' operand (bits unpacked
+        for B1) within PLAIN_CHUNK_ELEMS elements, so a batch over a small
+        extent ranks in one pass; chunks merge into a running top-k (for
+        lossy storage with ties to the lower slot, as lax.top_k breaks
+        them). ``psel`` [B] masks each query to its partition (-1 = every
+        partition); rows whose bias (``b``, by default ``self.b``) is
+        INVALID_BIAS are skipped. Returns (dist [B, k] f32 ascending, inf
+        for empty; slot [B, k] i32 or -1)."""
         b = self.b if b is None else b
         nq = qs.shape[0]
+        extent = min(self._round_cap(self.high), self.capacity)
+        self.scan_rows += extent
+        self.scan_capacity_rows += self.capacity
+        width = 8 * self.dp if self.quantization is Quantization.B1 else self.dp
+        step = max(1, PLAIN_CHUNK_ELEMS // (max(nq, width) * self.block_rows)) * self.block_rows
         q_aux = vector_aux(qs, self.space_type, self.quantization)
         best_d = torch.full((nq, k), float("inf"), device=self.device)
         best_i = torch.full((nq, k), -1, dtype=torch.int32, device=self.device)
-        for lo in range(0, self.capacity, self.block_rows):
-            hi = lo + self.block_rows
-            vb = self.vectors[lo:hi]
+        for lo in range(0, extent, step):
+            hi = min(lo + step, extent)
             d = pairwise_distance(
-                qs, vb, self.space_type, self.quantization, q_aux, self.aux[lo:hi]
+                qs, self.vectors[lo:hi], self.space_type, self.quantization, q_aux, self.aux[lo:hi]
             )
             keep = (b[lo:hi] < INVALID_CUTOFF)[None, :]
             if psel is not None:
@@ -936,15 +954,22 @@ class FlatDeviceIndex:
                     (psel[:, None] < 0) | (self.parts[lo:hi][None, :] == psel[:, None])
                 )
             d = torch.where(keep, d, float("inf"))
-            kb = min(k, vb.shape[0])
+            kb = min(k, hi - lo)
             if self.lossy:
                 bd, bi = stable_min_k(d, kb)
             else:
                 bd, bi = torch.topk(d, kb, dim=1, largest=False)
-            best_d, best_i = merge_min_k(
-                best_d, best_i, bd, (bi + lo).to(torch.int32), stable=self.lossy
-            )
+            bi = (bi + lo).to(torch.int32)
+            if lo == 0 and kb == k:  # the first chunk: nothing to merge yet
+                best_d, best_i = bd, bi
+            else:
+                best_d, best_i = merge_min_k(best_d, best_i, bd, bi, stable=self.lossy)
         return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
+
+    def flat_scans(self) -> tuple[int, int]:
+        """(rows the exact scan read, capacity it was offered), summed over
+        its calls: how far ``high`` bounds the scan."""
+        return self.scan_rows, self.scan_capacity_rows
 
     def _masked_scan(
         self, qs: torch.Tensor, psel: torch.Tensor, k: int, b: torch.Tensor | None = None

@@ -571,6 +571,10 @@ class GraphDeviceIndex:
     def graph_nodes(self) -> int:
         return self._graph_nodes
 
+    def flat_scans(self) -> tuple[int, int]:
+        """The store's exact-scan counters (FlatDeviceIndex.flat_scans)."""
+        return self.store.flat_scans()
+
     @property
     def device_bytes(self) -> int:
         """Device footprint: the vector store plus the adjacency."""

@@ -321,6 +321,10 @@ class IvfDeviceIndex:
     def capacity(self) -> int:
         return self._region.shape[0]
 
+    def flat_scans(self) -> tuple[int, int]:
+        """The delta's exact-scan counters (FlatDeviceIndex.flat_scans)."""
+        return self._delta.flat_scans()
+
     @property
     def device_bytes(self) -> int:
         total = self._delta.device_bytes + 4 * self._delta_pos2slot.shape[0]
@@ -879,6 +883,9 @@ class IvfDeviceIndex:
             pos2slot_host[stale_pos] = -1
             pos2slot_dev[torch.from_numpy(stale_pos).to(self.device)] = -1
 
+        # the exact scan's counters run on across the swap
+        fresh.scan_rows += self._delta.scan_rows
+        fresh.scan_capacity_rows += self._delta.scan_capacity_rows
         self._delta = fresh
         self._delta_next = spill_slots.size
         self._delta_free = stale_pos

@@ -77,10 +77,24 @@ class Service:
 
 
 class _Internals(Internals):
-    """The debug counters, with the heap's (``utils/heap``) added."""
+    """The debug counters, with the heap's (``utils/heap``) and the exact
+    scans' added: ``flat-scan-rows`` and ``flat-scan-capacity-rows``, the
+    rows the served indexes' exact scans read and the capacity they were
+    offered (``FlatDeviceIndex.flat_scans``)."""
+
+    def __init__(self, indexes: Indexes) -> None:
+        super().__init__()
+        self.indexes = indexes
 
     def counters(self) -> dict[str, int]:
-        return dict(sorted({**super().counters(), **heap.counters()}.items()))
+        rows = offered = 0
+        for entry in list(self.indexes.vs_entries.values()):
+            scans = getattr(entry.actor.engine, "flat_scans", None)
+            if scans is not None:
+                r, c = scans()
+                rows, offered = rows + r, offered + c
+        flat = {"flat-scan-rows": rows, "flat-scan-capacity-rows": offered}
+        return dict(sorted({**super().counters(), **heap.counters(), **flat}.items()))
 
 
 class _NodeState(NodeState):
@@ -150,10 +164,10 @@ async def build_service(
     device = resolve_device(device)
 
     node_state = _NodeState()
-    internals = _Internals()
+    indexes = Indexes()
+    internals = _Internals(indexes)
     memory = MemoryGovernor(device, limit_bytes=config.memory_limit)
     metrics = Metrics()
-    indexes = Indexes()
 
     from vector_store_tpu_torch.service.worker import Worker
 
